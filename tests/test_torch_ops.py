@@ -1,0 +1,183 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU the wrappers take their plain PyTorch versions (the CUDA kernels
+need the card), so these tests hold the plain versions, which the card
+tests compare the kernels with, against ``xclip_tpu.ops`` run in Pallas
+interpret mode. Inputs come from numpy with a fixed seed. Tolerances are
+fp32's: both sides compute in fp32 on the CPU and differ only in
+summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from xclip_tpu.ops import fused_conv as jax_fused_conv
+from xclip_tpu.ops import flash_attention as jax_flash
+from xclip_tpu_torch.ops import _build, fused_conv, flash_attention
+
+
+def _maa_inputs(m, k, c, seed=0):
+    rng = np.random.RandomState(seed)
+    z = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, c) / np.sqrt(k)).astype(np.float32)
+    g = (rng.rand(c) + 0.5).astype(np.float32)
+    b = (rng.randn(c) * 0.1).astype(np.float32)
+    ident = rng.randn(m, c).astype(np.float32)
+    return z, w, g, b, ident
+
+
+@pytest.mark.parametrize("m", [128, 1000])
+@pytest.mark.parametrize("k,c", [(36, 20), (64, 48)])
+@pytest.mark.parametrize("with_identity", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_affine_act_matches_pallas(m, k, c, with_identity, relu):
+    """K1/K2 plain vs the Pallas kernel (interpret mode on the CPU); K and C
+    are not multiples of 16. fp32 on both sides: atol = rtol = 1e-5."""
+    z, w, g, b, ident = _maa_inputs(m, k, c)
+    want = jax_fused_conv.matmul_affine_act(
+        jnp.asarray(z), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
+        jnp.asarray(ident) if with_identity else None, relu=relu)
+    got = fused_conv.matmul_affine_act(
+        torch.from_numpy(z), torch.from_numpy(w), torch.from_numpy(g), torch.from_numpy(b),
+        torch.from_numpy(ident) if with_identity else None, relu=relu)
+    assert got.dtype == torch.float32 and got.shape == (m, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_identity", [False, True])
+def test_matmul_affine_act_ragged_m(with_identity):
+    """M = 250*7*7 = 12,250 (RN50 layer 4 at the eval batch of 250), which
+    the Pallas tiling refuses (12,250 % 8 == 2), held against z@w*g+b in
+    float64 instead. fp32 vs float64 over K=96: atol = rtol = 1e-5."""
+    m, k, c = 12250, 96, 40
+    z, w, g, b, ident = _maa_inputs(m, k, c, seed=1)
+    ref = (z.astype(np.float64) @ w.astype(np.float64)) * g + b
+    if with_identity:
+        ref = ref + ident
+    ref = np.maximum(ref, 0.0)
+    got = fused_conv.matmul_affine_act(
+        torch.from_numpy(z), torch.from_numpy(w), torch.from_numpy(g), torch.from_numpy(b),
+        torch.from_numpy(ident) if with_identity else None, relu=True)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_pallas_tiling_refuses_ragged_m():
+    """The reason the ragged-M case is held against plain math: the JAX
+    tiling raises on M % 8 != 0 (fused_conv.py:42-52)."""
+    with pytest.raises(ValueError, match="divisible by 8"):
+        jax_fused_conv._pick_tile_m(12250)
+
+
+def test_matmul_affine_act_dtypes_cpu():
+    """bf16/fp16 IO keeps the dtype; fp32 epilogue then one cast, so the
+    result equals the fp32 plain result rounded once."""
+    z, w, g, b, ident = _maa_inputs(64, 32, 24, seed=2)
+    for dt in (torch.bfloat16, torch.float16):
+        zt, wt, it = (torch.from_numpy(a).to(dt) for a in (z, w, ident))
+        got = fused_conv.matmul_affine_act(zt, wt, torch.from_numpy(g), torch.from_numpy(b), it)
+        ref = fused_conv.matmul_affine_act_plain(zt.float(), wt.float(), torch.from_numpy(g),
+                                                 torch.from_numpy(b), it.float()).to(dt)
+        assert got.dtype == dt
+        assert torch.equal(got, ref)
+
+
+def _qkv(b, h, l, d, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, h, l, d).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("l", [50, 77, 200])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_matches_pallas(l, causal):
+    """K4 plain vs the Pallas kernel in interpret mode, as tests/test_ops.py
+    runs it: fp32, atol 2e-5, rtol 1e-4."""
+    q, k, v = _qkv(2, 4, l, 32)
+    want = jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal, interpret=True, block_q=64, block_k=64)
+    got = flash_attention.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                          torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_flash_mha_matches_pallas():
+    """(B, L, D) convenience form, causal, text-tower head dim 64."""
+    rng = np.random.RandomState(3)
+    q, k, v = [rng.randn(2, 77, 128).astype(np.float32) for _ in range(3)]
+    want = jax_flash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=2,
+                               causal=True, interpret=True)
+    got = flash_attention.flash_mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                    num_heads=2, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_wrappers_raise_off_cpu_and_never_fall_back():
+    """A tensor that is neither on the CPU nor usable by the CUDA kernel
+    raises; the wrappers have no fallback to the plain version."""
+    z, w, g, b, _ = (torch.from_numpy(a).to("meta") for a in _maa_inputs(16, 8, 8))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_conv.matmul_affine_act(z, w, g, b)
+    q = torch.empty(1, 2, 8, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention.flash_attention(q, q, q)
+    before = (fused_conv.launches, flash_attention.launches)
+    fused_conv.matmul_affine_act(*(torch.ones(8, 8) for _ in range(2)), torch.ones(8), torch.ones(8))
+    assert (fused_conv.launches, flash_attention.launches) == before  # CPU path launches nothing
+
+
+@pytest.mark.parametrize("op", ["matmul_affine_act", "flash_attention"])
+def test_wrappers_on_cuda_tensors_without_a_card_raise(monkeypatch, tmp_path, op):
+    """CUDA tensors (fake ones, so the test runs without a card) go to the
+    kernel path, which raises because the kernels cannot be built without
+    nvcc; the plain version is never taken."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(fused_conv, "matmul_affine_act_plain", no_plain)
+    monkeypatch.setattr(flash_attention, "flash_attention_plain", no_plain)
+    monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with FakeTensorMode():
+        if op == "matmul_affine_act":
+            z, w = torch.empty(16, 8, device="cuda"), torch.empty(8, 8, device="cuda")
+            g, b = torch.empty(8, device="cuda"), torch.empty(8, device="cuda")
+            assert z.is_cuda
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                fused_conv.matmul_affine_act(z, w, g, b)
+        else:
+            q = torch.empty(1, 2, 8, 64, device="cuda")
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                flash_attention.flash_attention(q, q, q, causal=True)
+
+
+def test_wrappers_validate_inputs():
+    z = torch.ones(16, 8)
+    with pytest.raises(ValueError):
+        fused_conv.matmul_affine_act(z, torch.ones(4, 8), torch.ones(8), torch.ones(8))
+    with pytest.raises(TypeError):
+        fused_conv.matmul_affine_act(z.double(), torch.ones(8, 8).double(), torch.ones(8), torch.ones(8))
+    with pytest.raises(ValueError, match="identity"):
+        fused_conv.matmul_affine_act(z, torch.ones(8, 8), torch.ones(8), torch.ones(8),
+                                     identity=torch.ones(16, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(torch.ones(1, 2, 8, 4), torch.ones(1, 2, 9, 4), torch.ones(1, 2, 8, 4))
+
+
+def test_build_without_nvcc_names_the_command(monkeypatch, tmp_path):
+    """With no nvcc the build raises and shows the command it tried."""
+    monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match=r"nvcc.*-gencode arch=compute_90a,code=sm_90a"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_hash_covers_sources():
+    digest = _build.source_hash()
+    assert len(digest) == 64 and digest == _build.source_hash()
+    names = {p.name for p in _build._sources()}
+    assert {"fused_conv.cu", "flash_attention.cu"} <= names

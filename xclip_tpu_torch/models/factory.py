@@ -1,0 +1,82 @@
+"""Model factory: the JSON config registry and ``create_model``.
+
+Counterpart of ``xclip_tpu/models/factory.py``. The open_clip JSON configs
+are read by path from the JAX package's ``models/configs`` (never
+imported). ``create_model`` returns one ``nn.Module`` in eval mode on the
+requested device; this slice builds the ResNet configs (RN50, RN101,
+RN50x4, RN50x16, RN50x64 and their -quickgelu variants).
+"""
+
+from __future__ import annotations
+
+import json
+from copy import deepcopy
+from typing import Dict, Optional, Union
+
+import torch
+
+from xclip_tpu_torch._assets import MODEL_CONFIG_DIR
+from xclip_tpu_torch.core.device import resolve_device
+from xclip_tpu_torch.core.precision import get_policy
+from xclip_tpu_torch.models.clip import CLIP, CLIPCfg, clip_cfg_from_dict
+
+
+def _scan_model_configs() -> Dict[str, dict]:
+    configs = {}
+    for path in sorted(MODEL_CONFIG_DIR.glob("*.json")):
+        cfg = json.loads(path.read_text())
+        if "embed_dim" in cfg and "vision_cfg" in cfg and "text_cfg" in cfg:
+            configs[path.stem] = cfg
+    return configs
+
+
+_MODEL_CONFIGS: Dict[str, dict] = _scan_model_configs()
+
+
+def list_models():
+    return list(_MODEL_CONFIGS)
+
+
+def get_model_config(model_name: str) -> Optional[dict]:
+    cfg = _MODEL_CONFIGS.get(model_name)
+    return deepcopy(cfg) if cfg is not None else None
+
+
+def get_clip_cfg(model_name: str) -> CLIPCfg:
+    cfg = get_model_config(model_name)
+    if cfg is None:
+        raise RuntimeError(f"Model config for {model_name} not found; available: {list_models()}")
+    return clip_cfg_from_dict(cfg)
+
+
+def create_model(
+    model_name: str,
+    pretrained: Optional[str] = None,
+    precision: str = "fp32",
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> CLIP:
+    """Build ``model_name`` in eval mode on ``device``.
+
+    Weights come from the open_clip ``.pt`` at ``pretrained`` when one is
+    given, else from ``torch.Generator().manual_seed(seed)`` on the CPU
+    (the same numbers on every device). ``device`` defaults to CUDA
+    and raises when there is none; pass ``device="cpu"`` for the CPU.
+    """
+    dev = resolve_device(device)
+    cfg = get_clip_cfg(model_name)
+    with torch.device("meta"):
+        model = CLIP(cfg)
+    model = model.to_empty(device="cpu")
+    if pretrained:
+        # strict: every parameter and buffer comes from the checkpoint
+        from xclip_tpu_torch.core.checkpoint import load_open_clip_checkpoint
+
+        model.load_state_dict(load_open_clip_checkpoint(pretrained), strict=True)
+    else:
+        model.init_parameters(torch.Generator().manual_seed(seed))
+    param_dtype = get_policy(precision).param_dtype
+    if param_dtype != torch.float32:
+        for p in model.parameters():
+            p.data = p.data.to(param_dtype)
+    return model.to(dev).eval()

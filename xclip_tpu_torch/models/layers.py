@@ -1,0 +1,110 @@
+"""Functional layer math shared by the towers.
+
+Counterpart of ``xclip_tpu/models/layers.py``, with the same numerics
+choices: matmul/conv inputs are cast to the compute dtype at use (weights
+stay in their stored dtype), LayerNorm and the BatchNorm fold compute in
+fp32, softmax is fp32. Weights are in PyTorch's layouts: linear
+``(out, in)``, conv OIHW.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x), the activation OpenAI CLIP was trained with."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+ACT_FNS = {"gelu": gelu, "quick_gelu": quick_gelu}
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ weight.T (+ bias)`` in the compute dtype; the bias is added after
+    the product is rounded, as ``layers.linear_apply`` does."""
+    if dtype is not None:
+        x = x.to(dtype)
+    y = x @ weight.to(x.dtype).t()
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm computed in fp32, cast back to x's dtype."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
+    return y.to(x.dtype)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Convolution in x's dtype (the weight is cast to it)."""
+    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+
+
+def bn_factors(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm folded to a per-channel fp32 affine ``(g, b)`` from the
+    running statistics, as ``layers.bn_factors_from_stats`` computes it."""
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+    scale = bn.weight.float()
+    return scale * inv, bn.bias.float() - scale * bn.running_mean.float() * inv
+
+
+def batchnorm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Eval BatchNorm over NCHW: the fp32 affine cast to x's dtype and applied
+    there (``layers.batchnorm_apply``, train=False)."""
+    g, b = bn_factors(bn)
+    return x * g.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Non-overlapping average pool over NCHW spatial dims, native dtype."""
+    return F.avg_pool2d(x, window)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """Scaled dot-product attention over (B, L, D) tensors with Lq != Lk
+    allowed (``layers.attention``, einsum path, no mask): fp32 logits and
+    softmax, weights cast to q's dtype before the product with v."""
+    b, lq, d = q.shape
+    lk = k.shape[1]
+    hd = d // num_heads
+    qh = q.reshape(b, lq, num_heads, hd).transpose(1, 2)
+    kh = k.reshape(b, lk, num_heads, hd).transpose(1, 2)
+    vh = v.reshape(b, lk, num_heads, hd).transpose(1, 2)
+    logits = (qh.float() @ kh.float().transpose(-1, -2)) * (hd ** -0.5)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = weights @ vh
+    return out.transpose(1, 2).reshape(b, lq, d)
+
+
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as ``layers.conv_init``."""
+    fan_in = conv.weight.shape[1] * conv.weight.shape[2] * conv.weight.shape[3]
+    uniform_(conv.weight, 1.0 / math.sqrt(fan_in), generator)
+
+
+def bn_init_(bn: nn.BatchNorm2d, scale: float = 1.0) -> None:
+    bn.weight.fill_(scale)
+    bn.bias.zero_()
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0)
+    bn.num_batches_tracked.zero_()
