@@ -150,8 +150,11 @@ def test_eval_transform_byte_identical(size, image_size):
 def test_eval_transform_grayscale_and_train_refused():
     img = Image.fromarray(np.random.RandomState(7).randint(0, 256, (50, 80), np.uint8), mode="L")
     assert image_transform(32)(img).tobytes() == jax_image_transform(32, is_train=False)(img).tobytes()
-    with pytest.raises(NotImplementedError):
-        image_transform(32, is_train=True)
+    # training is no longer refused: the uint8 train transform equals the
+    # JAX one at an equal seed, grayscale input included
+    got = image_transform(32, is_train=True, seed=3)(img)
+    want = jax_image_transform(32, is_train=True, seed=3, to_uint8=True)(img)
+    assert got.dtype == np.uint8 and got.tobytes() == want.tobytes()
 
 
 def test_dataset_indexes_match_jax(eval_tree):

@@ -247,9 +247,15 @@ def test_create_model_cpu_seeded_eval_only(monkeypatch):
     with torch.inference_mode():
         feats = a.encode_image(x, normalize=True)
     assert feats.shape == (2, 32) and torch.isfinite(feats).all()
+    # create_model returns eval mode; train mode (batch statistics) now runs
+    # and leaves the running statistics alone unless the caller applies them
     a.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        a.encode_image(x)
+    buffers = {k: v.clone() for k, v in a.visual.state_dict().items() if "running" in k}
+    with torch.no_grad():
+        train_feats = a.encode_image(x, normalize=True)
+    assert torch.isfinite(train_feats).all() and not torch.allclose(train_feats, feats)
+    for k, v in buffers.items():
+        assert torch.equal(a.visual.state_dict()[k], v), k
 
 
 @pytest.mark.parametrize("precision,compute", [
@@ -277,3 +283,108 @@ def test_bf16_bundle_close_to_fp32(port_tiny):
             b16 = enc(arg, normalize=True, dtype=torch.bfloat16)
             assert b16.dtype == torch.float32
             torch.testing.assert_close(b16, f32, atol=3e-2, rtol=0)
+
+
+# --- train mode (training slice) --------------------------------------------
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for torch: the suite's workers share the CPU, and
+    torch's thread pool then waits on preempted threads at every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_bottleneck_grads(params, state, x, ct, stride, pallas, monkeypatch):
+    if pallas:
+        monkeypatch.setenv("XCLIP_PALLAS_BLOCK", "1")
+    else:
+        monkeypatch.delenv("XCLIP_PALLAS_BLOCK", raising=False)
+
+    def loss(p, xx):
+        out, new_state = R._bottleneck_apply(p, state, xx, stride=stride, train=True, dtype=None)
+        return jnp.sum(out * ct), (out, new_state)
+
+    (_, (out, new_state)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x))
+    return jax.device_get((out, new_state, gp, gx))
+
+
+@pytest.mark.parametrize("pallas", [True, False])
+@pytest.mark.parametrize("inplanes,stride", [(32, 2), (32, 1)])
+def test_train_bottleneck_matches_jax(monkeypatch, one_torch_thread, pallas, inplanes, stride):
+    """Train-mode bottleneck (batch statistics) with a downsample (stride 2)
+    and without one (stride 1, inplanes == 4 * planes): output, grads of every
+    parameter and of x, and the new running statistics against
+    ``_bottleneck_apply(train=True)`` on its Pallas path (K3 + K1/K2 with
+    input moments, interpret mode) and on its default XLA path (plain BN),
+    fp32. Tolerance atol = rtol = 1e-4 (BatchNorm's backward through the
+    batch statistics over 32-128 rows)."""
+    planes = 8
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 8, 8, inplanes).astype(np.float32)
+    params, state = jax.device_get(R._bottleneck_init(jax.random.PRNGKey(1), inplanes, planes, stride=stride))
+    assert ("downsample" in params) == (stride > 1)
+    params["bn3"]["scale"] = np.full_like(params["bn3"]["scale"], 0.7)
+    _randomize_bn({"b": params}, {"b": state}, rng)
+    oh = 8 // stride
+    ct = rng.randn(2, oh, oh, planes * 4).astype(np.float32)
+    want, new_state, gp, gx = _jax_bottleneck_grads(params, state, x, ct, stride, pallas, monkeypatch)
+
+    block = Bottleneck(inplanes, planes, stride=stride)
+    block.load_state_dict(bottleneck_state_dict(params, state), strict=True)
+    block.train()
+    xt = torch.from_numpy(x).requires_grad_()
+    out, moments = block.forward_train(xt.permute(0, 3, 1, 2))
+    (out.permute(0, 2, 3, 1) * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).detach().numpy(), want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), gx, atol=1e-4, rtol=1e-4)
+    want_grads = bottleneck_state_dict(gp, state)
+    for name, p in block.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), atol=1e-4, rtol=1e-4, err_msg=name)
+    names = {"bn1": "bn1", "bn2": "bn2", "bn3": "bn3", "downsample.1": "downsample_bn"}
+    assert set(moments) == {k for k, v in names.items() if v in new_state}
+    for port_name, (mean, var) in moments.items():
+        np.testing.assert_allclose(mean.numpy(), new_state[names[port_name]]["mean"], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(var.numpy(), new_state[names[port_name]]["var"], atol=1e-5, rtol=1e-5)
+    for name, buf in block.named_buffers():  # the forward wrote no buffer
+        if "running" in name:
+            assert torch.equal(buf, bottleneck_state_dict(params, state)[name]), name
+
+
+def test_tiny_resnet_train_mode_matches_jax(monkeypatch, one_torch_thread, jax_tiny):
+    """The whole tiny ResNet in train mode, with and without per-block
+    recomputation: features and new running statistics of every BatchNorm
+    against ``resnet_apply(train=True)`` (Pallas path), fp32, atol 1e-4; the
+    recomputation changes nothing and updates no buffer."""
+    from xclip_tpu_torch.models.resnet import apply_bn_moments
+
+    monkeypatch.setenv("XCLIP_PALLAS_BLOCK", "1")
+    model, params, state = jax_tiny
+    x = _images(8, seed=6)
+    want, new_state, _ = R.resnet_apply(params["visual"], state["visual"], jnp.asarray(x), model.cfg.vision,
+                                        train=True)
+    want_sd = state_dict_from_jax_params(params, {"visual": jax.device_get(new_state)}, clip_cfg_from_dict(TINY))
+    cfg = clip_cfg_from_dict(TINY)
+    results = []
+    for remat in (False, True):
+        with torch.device("meta"):
+            port = CLIP(cfg)
+        port = port.to_empty(device="cpu")
+        port.load_state_dict(state_dict_from_jax_params(params, state, cfg), strict=True)
+        port.train()
+        moments = {}
+        xt = torch.from_numpy(x)
+        feats = port.visual(xt, moments=moments, grad_checkpointing=remat)
+        feats.sum().backward()
+        np.testing.assert_allclose(feats.detach().numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+        assert len(moments) == 3 + 4 * 4  # stem + (bn1-3, downsample) of each block
+        apply_bn_moments(port.visual, moments)
+        for key, val in port.state_dict().items():
+            if "running" in key:
+                np.testing.assert_allclose(val.numpy(), want_sd[key].numpy(), atol=1e-5, rtol=1e-5, err_msg=key)
+        results.append([p.grad.clone() for p in port.visual.parameters()])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

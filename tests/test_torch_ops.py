@@ -181,3 +181,146 @@ def test_build_hash_covers_sources():
     assert len(digest) == 64 and digest == _build.source_hash()
     names = {p.name for p in _build._sources()}
     assert {"fused_conv.cu", "flash_attention.cu"} <= names
+
+
+# --- K3 matmul_stats and the autograd Functions (training slice) -----------
+
+import jax  # noqa: E402
+
+from xclip_tpu.models import layers as jax_layers  # noqa: E402
+
+
+@pytest.mark.parametrize("m", [128, 1000])
+@pytest.mark.parametrize("k,c", [(36, 20), (64, 48)])
+def test_matmul_stats_matches_pallas(m, k, c):
+    """K3 plain vs the Pallas kernel in interpret mode, fp32 on both sides:
+    y atol = rtol = 1e-5; the column sums over up to 1,000 rows of O(1)
+    values differ by summation order only: rtol 1e-5, atol 1e-3."""
+    z, w, _, _, _ = _maa_inputs(m, k, c, seed=4)
+    wy, ws1, ws2 = jax_fused_conv.matmul_stats(jnp.asarray(z), jnp.asarray(w))
+    y, s1, s2 = fused_conv.matmul_stats(torch.from_numpy(z), torch.from_numpy(w))
+    assert y.dtype == torch.float32 and s1.dtype == s2.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s1.numpy(), np.asarray(ws1), atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(ws2), atol=1e-3, rtol=1e-5)
+
+
+def test_matmul_stats_ragged_m_and_dtypes():
+    """M = 12,250 (the Pallas tiling refuses it) against float64 sums
+    (rtol 1e-5); in bf16 the sums are those of the fp32 product, not of the
+    rounded y, and y is that product rounded once."""
+    z, w, _, _, _ = _maa_inputs(12250, 48, 24, seed=5)
+    y64 = z.astype(np.float64) @ w.astype(np.float64)
+    y, s1, s2 = fused_conv.matmul_stats(torch.from_numpy(z), torch.from_numpy(w))
+    np.testing.assert_allclose(y.numpy(), y64, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s1.numpy(), y64.sum(0), atol=1e-2, rtol=1e-5)
+    np.testing.assert_allclose(s2.numpy(), (y64 * y64).sum(0), rtol=1e-5)
+    zb, wb = torch.from_numpy(z).bfloat16(), torch.from_numpy(w).bfloat16()
+    yb, s1b, s2b = fused_conv.matmul_stats(zb, wb)
+    y32 = zb.float() @ wb.float()
+    assert yb.dtype == torch.bfloat16 and torch.equal(yb, y32.bfloat16())
+    assert torch.equal(s1b, y32.sum(0)) and torch.equal(s2b, (y32 * y32).sum(0))
+
+
+def _grads_close(got, want, atol, rtol=1e-5):
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=atol, rtol=rtol, err_msg=f"arg {i}")
+
+
+@pytest.mark.parametrize("with_identity", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_matmul_affine_act_grads_match_jax(with_identity, relu):
+    """Grads of MatmulAffineAct vs jax.grad of the custom-VJP
+    ``matmul_affine_act`` (Pallas interpret forward) for a random cotangent,
+    fp32: atol 1e-4 (dw/dg sum 256 rows), rtol 1e-5."""
+    m, k, c = 256, 40, 24
+    z, w, g, b, ident = _maa_inputs(m, k, c, seed=6)
+    ct = np.random.RandomState(7).randn(m, c).astype(np.float32)
+    args = [z, w, g, b] + ([ident] if with_identity else [])
+
+    def jax_loss(*a):
+        ident_arg = a[4] if with_identity else None
+        out = jax_fused_conv.matmul_affine_act(a[0], a[1], a[2], a[3], ident_arg, relu=relu)
+        return jnp.sum(out * ct)
+
+    want = jax.grad(jax_loss, argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    before = fused_conv.affine_act_backward_calls
+    out = fused_conv.MatmulAffineAct.apply(ts[0], ts[1], ts[2], ts[3], ts[4] if with_identity else None, relu)
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert fused_conv.affine_act_backward_calls == before + 1
+    _grads_close([t.grad for t in ts], want, atol=1e-4)
+
+
+def test_matmul_stats_grads_match_jax():
+    """Grads of MatmulStats (y, s1 and s2 all in the loss) vs jax.grad of the
+    custom-VJP ``matmul_stats``, fp32: atol 1e-3 (the s2 term scales with
+    2 y over 256 rows), rtol 1e-5."""
+    m, k, c = 256, 40, 24
+    z, w, _, _, _ = _maa_inputs(m, k, c, seed=8)
+    rng = np.random.RandomState(9)
+    cy, c1, c2 = rng.randn(m, c).astype(np.float32), rng.randn(c).astype(np.float32), rng.randn(c).astype(np.float32)
+
+    def jax_loss(z_, w_):
+        y, s1, s2 = jax_fused_conv.matmul_stats(z_, w_)
+        return jnp.sum(y * cy) + jnp.sum(s1 * c1) + 1e-2 * jnp.sum(s2 * c2)
+
+    want = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(w))
+    zt, wt = torch.from_numpy(z).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    before = fused_conv.stats_backward_calls
+    y, s1, s2 = fused_conv.MatmulStats.apply(zt, wt)
+    ((y * torch.from_numpy(cy)).sum() + (s1 * torch.from_numpy(c1)).sum()
+     + 1e-2 * (s2 * torch.from_numpy(c2)).sum()).backward()
+    assert fused_conv.stats_backward_calls == before + 1
+    _grads_close([zt.grad, wt.grad], want, atol=1e-3)
+
+
+@pytest.mark.parametrize("l", [16, 77])
+def test_flash_attention_grads_match_jax_and_plain(l):
+    """FlashAttention's backward vs jax.grad of ``layers.attention`` with the
+    additive causal mask (the JAX text tower's path) and vs autograd of
+    ``flash_attention_plain``, fp32: atol 2e-5, rtol 1e-4."""
+    b, h, hd = 2, 2, 32
+    rng = np.random.RandomState(l)
+    q, k, v = (rng.randn(b, l, h * hd).astype(np.float32) for _ in range(3))
+    ct = rng.randn(b, l, h * hd).astype(np.float32)
+    mask = jax_layers.causal_mask(l)
+
+    def jax_loss(q_, k_, v_):
+        return jnp.sum(jax_layers.attention(q_, k_, v_, num_heads=h, mask=mask) * ct)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    def heads(x):  # (B, L, D) -> contiguous (B, H, L, hd)
+        return x.view(b, l, h, hd).transpose(1, 2).contiguous()
+
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = flash_attention.backward_calls
+    out = flash_attention.FlashAttention.apply(*map(heads, ts), True)
+    (out.transpose(1, 2).reshape(b, l, h * hd) * torch.from_numpy(ct)).sum().backward()
+    assert flash_attention.backward_calls == before + 1
+    _grads_close([t.grad for t in ts], want, atol=2e-5, rtol=1e-4)
+
+    ps = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    ref = flash_attention.flash_attention_plain(*map(heads, ps), causal=True)
+    (ref.transpose(1, 2).reshape(b, l, h * hd) * torch.from_numpy(ct)).sum().backward()
+    _grads_close([t.grad for t in ts], [p.grad.numpy() for p in ps], atol=2e-5, rtol=1e-4)
+
+
+def test_matmul_stats_on_cuda_tensors_without_a_card_raises(monkeypatch, tmp_path):
+    """Like the other wrappers: CUDA tensors go to the kernel path (which
+    cannot build here), never to the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(fused_conv, "matmul_stats_plain", no_plain)
+    monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with FakeTensorMode():
+        z, w = torch.empty(16, 8, device="cuda"), torch.empty(8, 8, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fused_conv.matmul_stats(z, w)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_conv.matmul_stats(torch.ones(8, 8, device="meta"), torch.ones(8, 8, device="meta"))

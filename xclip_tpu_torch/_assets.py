@@ -1,8 +1,9 @@
-"""Paths of the data files the port shares with the JAX package.
+"""Paths of the port's data files, kept in ``xclip_tpu_torch/assets/``.
 
-These files are read by path and never imported, so the port pulls in no
-module of ``xclip_tpu`` (whose package ``__init__`` imports jax). This is
-the only module that names them.
+They are byte-identical copies of the JAX package's BPE vocab
+(``xclip_tpu/tokenizer``), evaluation metadata (``xclip_tpu/evals``) and
+open_clip model configs (``xclip_tpu/models/configs``), so the port reads
+nothing under ``xclip_tpu/``. This is the only module that names them.
 """
 
 from __future__ import annotations
@@ -10,8 +11,8 @@ from __future__ import annotations
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
-_JAX_PACKAGE = REPO_ROOT / "xclip_tpu"
+ASSETS = Path(__file__).resolve().parent / "assets"
 
-BPE_VOCAB = _JAX_PACKAGE / "tokenizer" / "bpe_simple_vocab_16e6.txt.gz"
-EVAL_METADATA = _JAX_PACKAGE / "evals" / "metadata.json"
-MODEL_CONFIG_DIR = _JAX_PACKAGE / "models" / "configs"
+BPE_VOCAB = ASSETS / "bpe_simple_vocab_16e6.txt.gz"
+EVAL_METADATA = ASSETS / "metadata.json"
+MODEL_CONFIG_DIR = ASSETS / "model_configs"

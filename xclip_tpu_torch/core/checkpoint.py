@@ -3,6 +3,11 @@
 - :func:`load_open_clip_checkpoint` reads a ``{"state_dict": ...}``
   checkpoint or a bare state dict and strips DDP's ``module.`` prefix
   (``xclip_tpu/core/checkpoint.py:227-232,776-783``).
+- :func:`save_checkpoint` writes a training checkpoint in open_clip's
+  format (``epoch``, ``name``, ``state_dict``, ``optimizer`` as
+  ``torch.optim``'s ``state_dict()``; reference training/main.py:450-483)
+  atomically, and :func:`load_training_checkpoint` reads it back for
+  ``--resume``;
 - :func:`state_dict_from_jax_params` turns the JAX package's param/state
   pytrees, as nested numpy arrays (``jax.device_get``), into this port's
   state dict: the port's own copy of the ResNet + text mapping of
@@ -13,7 +18,8 @@
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -21,7 +27,10 @@ import torch
 
 def load_open_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """State dict of an open_clip checkpoint, on the CPU, keys without ``module.``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return _state_dict_of(torch.load(path, map_location="cpu", weights_only=True), path)
+
+
+def _state_dict_of(ckpt, path: str) -> Dict[str, torch.Tensor]:
     sd = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
     if not isinstance(sd, Mapping):
         raise ValueError(f"{path}: not a state dict checkpoint")
@@ -31,6 +40,31 @@ def load_open_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if "_logit_scale" in sd and "logit_scale" not in sd:
         sd["logit_scale"] = sd.pop("_logit_scale")
     return sd
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
+                    epoch: int, name: str = "") -> None:
+    """Write ``{"epoch", "name", "state_dict", "optimizer"}`` to ``path``
+    through a temporary file and ``os.replace``, so a reader never sees a
+    partial file."""
+    ckpt = {"epoch": epoch, "name": name,
+            "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "optimizer": optimizer.state_dict()}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+
+
+def load_training_checkpoint(path: str, model: torch.nn.Module,
+                             optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
+    """Load weights (strict) and, when both sides have it, the optimizer
+    state from a checkpoint written by :func:`save_checkpoint` (or by
+    open_clip); returns ``{"epoch": ..., "name": ...}`` as stored."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(_state_dict_of(ckpt, path), strict=True)
+    if optimizer is not None and isinstance(ckpt, dict) and "optimizer" in ckpt:
+        optimizer.load_state_dict(ckpt["optimizer"])
+    return {k: ckpt[k] for k in ("epoch", "name") if isinstance(ckpt, dict) and k in ckpt}
 
 
 def _t(a) -> torch.Tensor:

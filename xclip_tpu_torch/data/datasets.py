@@ -1,11 +1,16 @@
-"""Eval dataset indexes: ImageNet folders and the DomainNet TSVs.
+"""Dataset indexes: ImageNet folders, the DomainNet TSVs, and the training
+sets.
 
-Copies of ``ImageFolderIndex``, ``ImageNet``, ``DomainNetCaptions`` and
-``DOMAIN_TO_IDX`` from ``xclip_tpu/data/datasets.py`` (:26-100, :222-268),
-with what the LSO evaluation uses: (image, label) samples, no class
-remapping or captions. ``__getitem__`` returns numpy samples; batching,
-worker processes and pinned memory are ``torch.utils.data.DataLoader``'s
-job (``evals/features.py``).
+Copies from ``xclip_tpu/data/datasets.py``:
+
+- ``ImageFolderIndex``, ``ImageNet``, ``DomainNetCaptions`` and
+  ``DOMAIN_TO_IDX`` (:26-100, :222-268), with what the LSO evaluation uses:
+  (image, label) samples, no class remapping or captions; batched by
+  ``torch.utils.data.DataLoader`` (``evals/features.py``);
+- ``TsvDataset`` (``filepath\\ttitle``) and ``SyntheticDataset`` (:270-375),
+  (image, caption) samples for training, batched by ``data/loader.py``.
+
+``__getitem__`` returns numpy samples.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import os
 from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 from PIL import Image
 
 ALL_DOMAINS = ["clipart", "infograph", "painting", "quickdraw", "real", "sketch"]
@@ -83,3 +89,45 @@ class DomainNetCaptions:
     def __getitem__(self, index: int):
         path, label, _ = self.samples[index]
         return self.transform(Image.open(path)), label
+
+
+class TsvDataset:
+    """``filepath\ttitle`` TSV of (image path, caption) rows; samples are
+    (transformed image, caption)."""
+
+    def __init__(self, tsv_path: str, img_transform: Callable):
+        with open(tsv_path) as fh:
+            lines = fh.readlines()
+        if not lines or lines[0].strip("\n") != "filepath\ttitle":
+            raise ValueError(f"{tsv_path}: the first line must be the header 'filepath\\ttitle'")
+        self.samples = [line.strip("\n").split("\t") for line in lines[1:]]
+        self.img_transform = img_transform
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, index: int):
+        path, caption = self.samples[index]
+        return self.img_transform(Image.open(path).convert("RGB")), caption
+
+
+class SyntheticDataset:
+    """Random images (16 distinct ones, seeded) with a fixed caption, for runs
+    without data on disk."""
+
+    def __init__(self, transform: Callable, image_size: int = 224, caption: str = "Dummy caption",
+                 dataset_size: int = 100, seed: int = 0):
+        self.transform = transform
+        self.caption = caption
+        rng = np.random.RandomState(seed)
+        self._images = [
+            Image.fromarray(rng.randint(0, 256, (image_size, image_size, 3), np.uint8))
+            for _ in range(min(dataset_size, 16))
+        ]
+        self.size = dataset_size
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int):
+        return self.transform(self._images[index % len(self._images)]), self.caption

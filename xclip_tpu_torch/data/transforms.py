@@ -1,12 +1,21 @@
-"""Eval image preprocessing -> NHWC float32 numpy.
+"""Image preprocessing -> NHWC numpy.
 
-A copy of the eval path of ``xclip_tpu/data/transforms.py``
-(``image_transform(..., is_train=False)`` with its defaults): shortest-side
-bicubic resize, centre crop, OpenAI mean/std. Byte-identical on the same
-PIL image. The training augmentations come with the training slice.
+Copies of two paths of ``xclip_tpu/data/transforms.py`` with its defaults,
+byte-identical on the same PIL image (and, for training, the same
+``random.Random`` seed):
+
+- eval (``image_transform(..., is_train=False)``): shortest-side bicubic
+  resize, centre crop, OpenAI mean/std -> float32;
+- train (``is_train=True, to_uint8=True``): ``random_resized_crop`` with
+  scale (0.9, 1.0), bicubic -> uint8; the train step normalizes on the
+  device (``train.step.normalize_images``).
 """
 
 from __future__ import annotations
+
+import math
+import random
+from typing import Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -39,19 +48,62 @@ def center_crop(img: Image.Image, size: int) -> Image.Image:
     return img.crop((left, top, left + size, top + size))
 
 
-class ImageTransform:
-    """Callable PIL.Image -> float32 HWC array."""
+def random_resized_crop(
+    img: Image.Image,
+    size: int,
+    *,
+    scale: Tuple[float, float] = (0.9, 1.0),
+    ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0),
+    rng: Optional[random.Random] = None,
+) -> Image.Image:
+    """torchvision-equivalent RandomResizedCrop sampling, bicubic."""
+    rng = rng or random
+    width, height = img.size
+    area = width * height
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = math.exp(rng.uniform(*log_ratio))
+        w = int(round(math.sqrt(target_area * aspect)))
+        h = int(round(math.sqrt(target_area / aspect)))
+        if 0 < w <= width and 0 < h <= height:
+            i = rng.randint(0, height - h)
+            j = rng.randint(0, width - w)
+            return img.resize((size, size), Image.BICUBIC, box=(j, i, j + w, i + h))
+    # fallback: center crop to in-range aspect
+    in_ratio = width / height
+    if in_ratio < ratio[0]:
+        w, h = width, int(round(width / ratio[0]))
+    elif in_ratio > ratio[1]:
+        w, h = int(round(height * ratio[1])), height
+    else:
+        w, h = width, height
+    i, j = (height - h) // 2, (width - w) // 2
+    return img.resize((size, size), Image.BICUBIC, box=(j, i, j + w, i + h))
 
-    def __init__(self, size: int):
+
+class ImageTransform:
+    """Callable PIL.Image -> HWC array: float32 normalized (eval) or uint8
+    random-resized crop (train)."""
+
+    def __init__(self, size: int, is_train: bool = False, seed: Optional[int] = None):
         self.size = size
+        self.is_train = is_train
+        # None = the global ``random``; a module cannot be pickled into
+        # DataLoader worker processes, so it is not stored
+        self.rng = random.Random(seed) if seed is not None else None
 
     def __call__(self, img: Image.Image) -> np.ndarray:
         img = img.convert("RGB") if img.mode != "RGB" else img
+        if self.is_train:
+            img = random_resized_crop(img, self.size, rng=self.rng)
+            return np.asarray(img, dtype=np.uint8)
         img = center_crop(resize_shortest(img, self.size), self.size)
         return normalize(np.asarray(img))
 
 
-def image_transform(image_size: int, is_train: bool = False) -> ImageTransform:
-    if is_train:
-        raise NotImplementedError("training augmentations come with the training slice")
-    return ImageTransform(image_size)
+def image_transform(image_size: int, is_train: bool = False, seed: Optional[int] = None) -> ImageTransform:
+    """Eval transform, or with ``is_train`` the uint8 train transform whose
+    crops come from ``random.Random(seed)`` (the global ``random`` when
+    ``seed`` is None, as in the JAX package)."""
+    return ImageTransform(image_size, is_train, seed)

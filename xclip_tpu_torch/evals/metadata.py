@@ -1,7 +1,7 @@
 """Evaluation metadata: ImageNet class names and prompt templates.
 
-Read by path from the JAX package's ``evals/metadata.json`` on first
-access (not at import); see ``xclip_tpu/evals/metadata.py`` for what each
+Read from the port's copy of the JAX package's ``evals/metadata.json``
+(``_assets.EVAL_METADATA``) on first access (not at import); see ``xclip_tpu/evals/metadata.py`` for what each
 list is.
 """
 

@@ -6,20 +6,21 @@ state-dict names are open_clip's CLIP (``visual.*``, ``token_embedding``,
 ``positional_embedding``, ``transformer.*``, ``ln_final``,
 ``text_projection``, ``logit_scale``), so an open_clip ``.pt`` loads with
 ``load_state_dict``. Only ResNet image towers and the plain text tower are
-ported in this slice.
+ported so far. :meth:`CLIP.forward` is the contrastive training forward
+(``CLIPModel.forward``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from xclip_tpu_torch.models import layers as L
-from xclip_tpu_torch.models.resnet import ModifiedResNet, ResNetCfg
+from xclip_tpu_torch.models.resnet import ModifiedResNet, Moments, ResNetCfg
 from xclip_tpu_torch.models.transformer import TextTransformerCfg, Transformer
 
 
@@ -111,19 +112,22 @@ class CLIP(nn.Module):
         self.logit_scale.fill_(self.cfg.init_logit_scale)
 
     def encode_image(self, images: torch.Tensor, *, normalize: bool = False,
-                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """images: (N, H, W, 3) NHWC float -> (N, embed_dim) features."""
-        feats = self.visual(images, dtype=dtype)
+                     dtype: Optional[torch.dtype] = None, moments: Optional[Moments] = None,
+                     grad_checkpointing: bool = False) -> torch.Tensor:
+        """images: (N, H, W, 3) NHWC float -> (N, embed_dim) features. In
+        train mode ``moments`` receives the new BatchNorm running statistics
+        (see ``ModifiedResNet.forward``)."""
+        feats = self.visual(images, dtype=dtype, moments=moments, grad_checkpointing=grad_checkpointing)
         return l2_normalize(feats) if normalize else feats
 
     def encode_text(self, text_ids: torch.Tensor, *, normalize: bool = False,
-                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    dtype: Optional[torch.dtype] = None, grad_checkpointing: bool = False) -> torch.Tensor:
         """text_ids: (N, L) int token ids -> (N, embed_dim) fp32 features."""
         emb_dtype = dtype or self.token_embedding.weight.dtype
         ids = text_ids.long()
         x = self.token_embedding.weight[ids].to(emb_dtype)
         x = x + self.positional_embedding[: x.shape[1]].to(emb_dtype)
-        x = self.transformer(x, dtype=dtype)
+        x = self.transformer(x, dtype=dtype, grad_checkpointing=grad_checkpointing)
         x = L.layer_norm(x, self.ln_final)
         # argmax pooling: the EOT token has the highest id in each sequence
         pooled = x[torch.arange(x.shape[0], device=x.device), ids.argmax(dim=-1)]
@@ -134,3 +138,13 @@ class CLIP(nn.Module):
             pooled, proj = pooled.to(dtype), proj.to(dtype)
         feats = pooled.float() @ proj.float()
         return l2_normalize(feats) if normalize else feats
+
+    def forward(self, images: torch.Tensor, texts: torch.Tensor, dtype: Optional[torch.dtype] = None, *,
+                moments: Optional[Moments] = None,
+                grad_checkpointing: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Contrastive forward -> (normalized fp32 image features, normalized
+        fp32 text features, ``logit_scale.exp()``)."""
+        img = self.encode_image(images, normalize=True, dtype=dtype, moments=moments,
+                                grad_checkpointing=grad_checkpointing)
+        txt = self.encode_text(texts, normalize=True, dtype=dtype, grad_checkpointing=grad_checkpointing)
+        return img, txt, self.logit_scale.exp()

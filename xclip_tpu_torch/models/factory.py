@@ -1,10 +1,10 @@
 """Model factory: the JSON config registry and ``create_model``.
 
 Counterpart of ``xclip_tpu/models/factory.py``. The open_clip JSON configs
-are read by path from the JAX package's ``models/configs`` (never
-imported). ``create_model`` returns one ``nn.Module`` in eval mode on the
-requested device; this slice builds the ResNet configs (RN50, RN101,
-RN50x4, RN50x16, RN50x64 and their -quickgelu variants).
+are the port's copies in ``assets/model_configs`` (``_assets``).
+``create_model`` returns one ``nn.Module`` in eval mode on the requested
+device; the ResNet configs are built (RN50, RN101, RN50x4, RN50x16, RN50x64
+and their -quickgelu variants).
 """
 
 from __future__ import annotations

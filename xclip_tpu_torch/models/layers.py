@@ -3,7 +3,8 @@
 Counterpart of ``xclip_tpu/models/layers.py``, with the same numerics
 choices: matmul/conv inputs are cast to the compute dtype at use (weights
 stay in their stored dtype), LayerNorm and the BatchNorm fold compute in
-fp32, softmax is fp32. Weights are in PyTorch's layouts: linear
+fp32, softmax is fp32. BatchNorm in train mode is written out here (not
+``F.batch_norm``, whose numerics and buffer update differ). Weights are in PyTorch's layouts: linear
 ``(out, in)``, conv OIHW.
 """
 
@@ -65,6 +66,63 @@ def batchnorm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     there (``layers.batchnorm_apply``, train=False)."""
     g, b = bn_factors(bn)
     return x * g.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+
+
+# Train-mode BatchNorm. The running statistics are updated functionally, as
+# the JAX package carries them in a state pytree: each function returns the
+# new (running_mean, running_var) pair, detached, and the caller writes it
+# into the buffers (see ``resnet.apply_bn_moments``). A re-run forward
+# (checkpoint recomputation, the no-grad cache pass of accumulation) then
+# cannot update a buffer twice.
+
+BN_MOMENTUM = 0.1
+
+
+def bn_factors_from_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                          var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel fp32 affine ``(g, b)`` from batch moments (``layers.
+    bn_factors_from_stats``, train=True); differentiable in the moments."""
+    inv = torch.rsqrt(var + bn.eps)
+    scale = bn.weight.float()
+    return scale * inv, bn.bias.float() - scale * mean * inv
+
+
+def running_stats_update(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                         n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New running ``(mean, var)`` from the batch ``mean`` and biased ``var``
+    over ``n`` values: unbiased variance, momentum ``BN_MOMENTUM``, fp32."""
+    mean, var = mean.detach(), var.detach()
+    unbiased = var * (n / max(n - 1, 1))
+    return ((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean,
+            (1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
+
+
+def batchnorm_train(x: torch.Tensor, bn: nn.BatchNorm2d):
+    """Train BatchNorm over NCHW with batch statistics (``layers.
+    batchnorm_apply``, train=True): fp32 mean and E[x^2] (x^2 rounded in x's
+    dtype, summed in fp32), the affine computed in fp32 and applied in x's
+    dtype. Returns ``(y, (new_running_mean, new_running_var))``."""
+    dims = (0, 2, 3)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    mean = torch.mean(x, dim=dims, dtype=torch.float32)
+    mean_sq = torch.mean(x * x, dim=dims, dtype=torch.float32)
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+    g, b = bn_factors_from_stats(bn, mean, var)
+    y = x * g.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+    return y, running_stats_update(bn, mean, var, n)
+
+
+def conv1x1_moments_from_input(z: torch.Tensor, w32: torch.Tensor, n: int):
+    """Batch mean and biased variance of ``y = z @ w`` from z's first and
+    second moments (``layers.conv1x1_moments_from_input``). z: (N, K) in any
+    dtype, upcast to fp32 so the covariance ``z^T z / n`` is an fp32 product;
+    w32: (K, C) fp32."""
+    z32 = z.float()
+    m_z = z32.mean(dim=0)
+    cov = (z32.t() @ z32) / n
+    mean = m_z @ w32
+    mean_sq = ((cov @ w32) * w32).sum(dim=0)
+    return mean, torch.clamp_min(mean_sq - mean * mean, 0.0)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -1,30 +1,43 @@
-"""ModifiedResNet image tower (RN50, RN101, RN50x4, ...), eval mode.
+"""ModifiedResNet image tower (RN50, RN101, RN50x4, ...), train and eval.
 
 Counterpart of ``xclip_tpu/models/resnet.py``: CLIP's anti-aliased ResNet
 with a 3-conv stem, bottlenecks whose strided convs are avgpool + conv, and
 an attention pool that queries only the mean token. Parameter names are
 open_clip's (``visual.layer1.0.conv1.weight``, ``visual.attnpool.q_proj``...).
 
-The bottleneck follows the eval branch of ``_bottleneck_apply_pallas``
-(resnet.py:157-229): conv1, the downsample conv and conv3 are 1x1 convs run
-through :func:`ops.fused_conv.matmul_affine_act` with the BatchNorm folded
-into an fp32 epilogue (conv3 adds the identity there); conv2 is a plain 3x3
-conv. Activations stay in ``torch.channels_last``, so the input of each 1x1
-conv is an ``(N*H*W, C)`` view with no copy. Training (batch statistics,
-backward) is not ported yet and raises.
+The bottleneck follows ``_bottleneck_apply_pallas`` (resnet.py:157-229).
+Activations stay in ``torch.channels_last``, so the input of each 1x1 conv
+is an ``(N*H*W, C)`` view with no copy; conv2 is a plain 3x3 conv.
+
+- Eval: conv1, the downsample conv and conv3 run through
+  :func:`ops.fused_conv.matmul_affine_act` with the BatchNorm folded into an
+  fp32 epilogue from the running statistics (conv3 adds the identity there).
+- Train: conv1 through :class:`ops.fused_conv.MatmulStats` (K3: the batch
+  moments come out of the matmul), then the affine and relu; conv2 with
+  train BatchNorm; the downsample and conv3 take their batch moments from
+  their inputs (``conv1x1_moments_from_input``, 1x1 linearity) and run
+  through :class:`ops.fused_conv.MatmulAffineAct` (K1/K2). The stem is plain
+  conv + train BatchNorm. Every BatchNorm returns its new running
+  statistics instead of writing them; the caller applies them once
+  (:func:`apply_bn_moments`), so checkpoint recomputation and the no-grad
+  cache pass of accumulation update nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from xclip_tpu_torch.models import layers as L
-from xclip_tpu_torch.ops.fused_conv import matmul_affine_act
+from xclip_tpu_torch.ops.fused_conv import MatmulAffineAct, MatmulStats, matmul_affine_act
+
+# BatchNorm module name (relative to the tower) -> new (running_mean, running_var)
+Moments = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 EXPANSION = 4
 
@@ -66,12 +79,15 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "ModifiedResNet runs in eval mode only in this port; train mode (BatchNorm batch "
-            "statistics, backward, the matmul_stats kernel) comes with the training slice. "
-            "Call model.eval().")
+@torch.no_grad()
+def apply_bn_moments(module: nn.Module, moments: Moments) -> None:
+    """Write new running statistics (from a train-mode forward) into the
+    BatchNorm buffers of ``module``, each once."""
+    for name, (mean, var) in moments.items():
+        bn = module.get_submodule(name)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+        bn.num_batches_tracked += 1
 
 
 class Bottleneck(nn.Module):
@@ -101,9 +117,55 @@ class Bottleneck(nn.Module):
             L.conv_init_(self.downsample[0], generator)
             L.bn_init_(self.downsample[1])
 
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, Moments]:
+        """Train mode (the train branch of ``_bottleneck_apply_pallas``):
+        x: (N, C, H, W) channels_last in the compute dtype -> (out, new
+        running statistics of bn1, bn2, bn3 and downsample.1)."""
+        n, cin, h, w = x.shape
+        dt = x.dtype
+        moments: Moments = {}
+        zf = _as_rows(x)
+        n1 = zf.shape[0]
+        y1, s1, s2 = MatmulStats.apply(zf, _weight_kc(self.conv1, dt))
+        mean1 = s1 / n1
+        var1 = torch.clamp_min(s2 / n1 - mean1 * mean1, 0.0)
+        g1, b1 = L.bn_factors_from_stats(self.bn1, mean1, var1)
+        moments["bn1"] = L.running_stats_update(self.bn1, mean1, var1, n1)
+        out = _from_rows(torch.relu(y1 * g1.to(dt) + b1.to(dt)), n, h, w)
+
+        out = L.conv2d(out, self.conv2.weight, padding=1)
+        out, moments["bn2"] = L.batchnorm_train(out, self.bn2)
+        out = torch.relu(out)
+        if self.stride > 1:
+            out = L.avg_pool(out, self.stride)
+        out = _channels_last(out)
+        oh, ow = out.shape[2], out.shape[3]
+        z2 = _as_rows(out)
+        n3 = z2.shape[0]
+
+        if self.downsample is not None:
+            idin = _channels_last(L.avg_pool(x, self.stride)) if self.stride > 1 else x
+            idf = _as_rows(idin)
+            conv, bn = self.downsample[0], self.downsample[1]
+            wd32 = conv.weight[:, :, 0, 0].t().float()
+            mean_d, var_d = L.conv1x1_moments_from_input(idf, wd32, n3)
+            gd, bd = L.bn_factors_from_stats(bn, mean_d, var_d)
+            moments["downsample.1"] = L.running_stats_update(bn, mean_d, var_d, n3)
+            identity = MatmulAffineAct.apply(idf, wd32.to(dt).contiguous(), gd, bd, None, False)
+        else:
+            identity = _as_rows(x)
+        w3_32 = self.conv3.weight[:, :, 0, 0].t().float()
+        mean3, var3 = L.conv1x1_moments_from_input(z2, w3_32, n3)
+        g3, b3 = L.bn_factors_from_stats(self.bn3, mean3, var3)
+        moments["bn3"] = L.running_stats_update(self.bn3, mean3, var3, n3)
+        out = MatmulAffineAct.apply(z2, w3_32.to(dt).contiguous(), g3, b3, identity, True)
+        return _from_rows(out, n, oh, ow), moments
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, C, H, W) channels_last in the compute dtype."""
-        _check_eval(self)
+        """x: (N, C, H, W) channels_last in the compute dtype. In train mode
+        the new running statistics are dropped (see :meth:`forward_train`)."""
+        if self.training:
+            return self.forward_train(x)[0]
         n, cin, h, w = x.shape
         dt = x.dtype
         g1, b1 = L.bn_factors(self.bn1)
@@ -193,20 +255,41 @@ class ModifiedResNet(nn.Module):
                 block.init_parameters(generator)
         self.attnpool.init_parameters(generator)
 
-    def forward(self, images: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, dtype: Optional[torch.dtype] = None, *,
+                moments: Optional[Moments] = None, grad_checkpointing: bool = False) -> torch.Tensor:
         """images: (N, H, W, 3) NHWC, as the JAX tower takes them ->
-        (N, output_dim) in the compute dtype."""
-        _check_eval(self)
+        (N, output_dim) in the compute dtype.
+
+        In train mode BatchNorm uses batch statistics and ``moments``, when
+        given, receives every BatchNorm's new running statistics (names
+        relative to this module) for :func:`apply_bn_moments`.
+        ``grad_checkpointing`` recomputes each bottleneck in the backward
+        (``jax.checkpoint`` per block, resnet.py:360-398)."""
         x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         if dtype is not None:
             x = x.to(dtype)
         x = _channels_last(x)
+        new: Moments = {}
         for i, (conv, bn) in enumerate(((self.conv1, self.bn1), (self.conv2, self.bn2),
                                         (self.conv3, self.bn3))):
             x = L.conv2d(x, conv.weight, stride=2 if i == 0 else 1, padding=1)
-            x = torch.relu(L.batchnorm_eval(x, bn))
+            if self.training:
+                x, new[f"bn{i + 1}"] = L.batchnorm_train(x, bn)
+            else:
+                x = L.batchnorm_eval(x, bn)
+            x = torch.relu(x)
         x = _channels_last(L.avg_pool(x, 2))
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            for block in stage:
-                x = block(x)
+        remat = grad_checkpointing and self.training and torch.is_grad_enabled()
+        for si, stage in enumerate((self.layer1, self.layer2, self.layer3, self.layer4)):
+            for bi, block in enumerate(stage):
+                if not self.training:
+                    x = block(x)
+                    continue
+                if remat:
+                    x, block_moments = _checkpoint(block.forward_train, x, use_reentrant=False)
+                else:
+                    x, block_moments = block.forward_train(x)
+                new.update({f"layer{si + 1}.{bi}.{k}": v for k, v in block_moments.items()})
+        if moments is not None:
+            moments.update(new)
         return self.attnpool(x, dtype=dtype)

@@ -5,9 +5,11 @@ Counterpart of the text half of ``xclip_tpu/models/transformer.py``
 are open_clip's: ``transformer.resblocks.{i}.ln_1``, ``.attn.in_proj_weight``
 (packed q/k/v), ``.attn.out_proj``, ``.ln_2``, ``.mlp.c_fc``, ``.mlp.c_proj``.
 Self-attention is causal and goes through
-:func:`ops.flash_attention.flash_attention` with the causal flag, so no
-additive mask is built; pooling takes the EOT (argmax) token. The ViT
-towers come with a later slice.
+:class:`ops.flash_attention.FlashAttention` (the K4 kernel forward, a plain
+backward) with the causal flag, so no additive mask is built; pooling takes
+the EOT (argmax) token. With ``grad_checkpointing`` each block is
+recomputed in the backward (``jax.checkpoint`` per block,
+transformer.py:194-199). The ViT towers come with a later slice.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from xclip_tpu_torch.models import layers as L
-from xclip_tpu_torch.ops.flash_attention import flash_attention
+from xclip_tpu_torch.ops.flash_attention import FlashAttention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +54,7 @@ class SelfAttention(nn.Module):
         # (B, L, 3, H, hd) -> three contiguous (B, H, L, hd)
         qkv = qkv.view(b, seq_len, 3, self.heads, d // self.heads).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv.unbind(0))
-        o = flash_attention(q, k, v, causal=True)
+        o = FlashAttention.apply(q, k, v, True)
         o = o.transpose(1, 2).reshape(b, seq_len, d)
         return L.linear(o, self.out_proj.weight, self.out_proj.bias, dtype=dtype)
 
@@ -102,8 +105,13 @@ class Transformer(nn.Module):
             ResidualAttentionBlock(cfg.width, cfg.heads, cfg.act)
             for _ in range(cfg.layers))
 
-    def forward(self, x: torch.Tensor, *, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, dtype: Optional[torch.dtype],
+                grad_checkpointing: bool = False) -> torch.Tensor:
+        remat = grad_checkpointing and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, dtype=dtype)
+            if remat:
+                x = _checkpoint(block, x, dtype=dtype, use_reentrant=False)
+            else:
+                x = block(x, dtype=dtype)
         return x
 

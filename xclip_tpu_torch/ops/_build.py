@@ -110,6 +110,8 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.xk_matmul_affine_act.argtypes = [i, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
             lib.xk_matmul_affine_act.restype = i
+            lib.xk_matmul_stats.argtypes = [i, p, p, p, p, p, p, ctypes.c_longlong, i, i, p]
+            lib.xk_matmul_stats.restype = i
             lib.xk_flash_attention.argtypes = [i, p, p, p, p, i, i, i, ctypes.c_float, i, p]
             lib.xk_flash_attention.restype = i
             _lib = lib

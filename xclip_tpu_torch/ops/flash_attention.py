@@ -9,10 +9,14 @@ max, sum and accumulator, optional causal mask, IO in q's dtype.
   tensors; nothing else.
 - :func:`flash_attention_plain` is the same function in plain PyTorch, fp32
   inside, used by the CPU path and as the kernel's reference.
-- ``launches`` counts kernel launches.
+- :class:`FlashAttention` is its autograd Function: the kernel forward and a
+  plain PyTorch backward that recomputes the softmax in fp32 (the JAX
+  kernel has no VJP; the JAX train step differentiates the einsum
+  ``layers.attention`` instead). A backward kernel is later work.
+- ``launches`` counts kernel launches, ``backward_calls`` backward passes.
 
-Forward only, like the JAX kernel; like it, Lq must equal Lk, so
-attnpool's single query uses ``models.layers.attention``.
+Like the JAX kernel, Lq must equal Lk, so attnpool's single query uses
+``models.layers.attention``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from xclip_tpu_torch.ops import _build
 
 launches = 0
+backward_calls = 0
 
 HEAD_DIMS = (64,)  # instantiated in csrc/flash_attention.cu
 
@@ -76,6 +81,39 @@ def flash_attention(q, k, v, *, causal: bool = False, sm_scale: Optional[float] 
                            f"(B*H={b * h}, L={seq_len}, D={head_dim}, {q.dtype})")
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, causal)``: :func:`flash_attention`
+    forward; backward in fp32 from P recomputed out of q and k (with the
+    causal mask): dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)),
+    dQ = dS K s, dK = dS^T Q s, each cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        global backward_calls
+        backward_calls += 1
+        q, k, v = ctx.saved_tensors
+        seq_len, head_dim = q.shape[-2], q.shape[-1]
+        scale = 1.0 / math.sqrt(head_dim)
+        qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+        s = (qf * scale) @ kf.transpose(-1, -2)
+        if ctx.causal:
+            above = torch.ones(seq_len, seq_len, dtype=torch.bool, device=q.device).triu(1)
+            s = s.masked_fill(above, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        dv = p.transpose(-1, -2) @ do
+        dp = do @ vf.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = (ds @ kf) * scale
+        dk = (ds.transpose(-1, -2) @ qf) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def flash_mha(q, k, v, *, num_heads: int, causal: bool = False):

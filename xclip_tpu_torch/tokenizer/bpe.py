@@ -2,10 +2,11 @@
 
 A copy of ``xclip_tpu/tokenizer/bpe.py`` (itself token-exact with the
 OpenAI CLIP BPE), kept here so the port imports nothing of the JAX package.
-The merge table is read by path from the JAX package's data file
+The merge table is the port's own copy of the JAX package's data file
 (``_assets.BPE_VOCAB``). Only what the plain CLIP configs need is copied
 (the "lower" cleaning, the two special tokens); the masking tokenizers
-used in training come with the training slice.
+(``random_mask_tokenize``, ``simple_mask_tokenize``,
+``syntax_mask_tokenize``) are not copied yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,56 @@
+"""Training CLI flags: the subset of ``xclip_tpu/train/params.py`` that the
+one-GPU training path uses, with the same names and defaults (reference
+training/params.py), so reference launch commands for this path work.
+
+``--local-loss`` and ``--gather-with-grad`` are accepted and change nothing
+at world size 1. ``--device`` picks the device: ``cuda`` (the default,
+raising without a card) or ``cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse_args(args=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser("xclip_tpu_torch CLIP training")
+    # data
+    parser.add_argument("--train-data", type=str, default=None,
+                        help="TSV/CSV with a 'filepath\\ttitle' header")
+    parser.add_argument("--dataset-type", choices=["csv", "tsv", "synthetic", "auto"], default="auto")
+    parser.add_argument("--train-num-samples", type=int, default=None)
+    parser.add_argument("--workers", type=int, default=8, help="decode threads of the loader")
+    # model
+    parser.add_argument("--model", type=str, default="RN50")
+    parser.add_argument("--precision", type=str, default="amp",
+                        choices=["amp", "amp_bf16", "amp_bfloat16", "bf16", "fp16", "pure_bf16", "fp32"])
+    # optimization
+    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--epochs", type=int, default=32)
+    parser.add_argument("--epochs-cooldown", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=5.0e-4)
+    parser.add_argument("--beta1", type=float, default=0.9)
+    parser.add_argument("--beta2", type=float, default=0.98)
+    parser.add_argument("--eps", type=float, default=1.0e-6)
+    parser.add_argument("--wd", type=float, default=0.2)
+    parser.add_argument("--warmup", type=int, default=10000)
+    parser.add_argument("--lr-scheduler", type=str, default="cosine",
+                        choices=["cosine", "const", "const-cooldown"])
+    parser.add_argument("--lr-cooldown-end", type=float, default=0.0)
+    parser.add_argument("--lr-cooldown-power", type=float, default=1.0)
+    parser.add_argument("--accum-freq", type=int, default=1)
+    parser.add_argument("--grad-clip-norm", type=float, default=None)
+    parser.add_argument("--grad-checkpointing", action="store_true")
+    # loss (one process: no gather, so both are accepted and inert)
+    parser.add_argument("--local-loss", action="store_true")
+    parser.add_argument("--gather-with-grad", action="store_true")
+    # logging / checkpointing
+    parser.add_argument("--logs", type=str, default="./logs/")
+    parser.add_argument("--name", type=str, default=None)
+    parser.add_argument("--resume", type=str, default=None, help="a checkpoint path, or 'latest'")
+    parser.add_argument("--save-frequency", type=int, default=1)
+    parser.add_argument("--save-most-recent", action="store_true")
+    parser.add_argument("--log-every-n-steps", type=int, default=100)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return parser.parse_args(args)
