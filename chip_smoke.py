@@ -36,7 +36,31 @@ Phases, each fatal on failure:
    profile one step (``torch.profiler``, top device ops);
    5b. one fp32 train step of a tiny RN config on the card against the
    same step on the CPU (loss and every gradient);
-6. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+6. K5 and the bandwidth probe: hold ``stream_scale`` bit for bit against
+   its plain version at the probe's (8192, 8192) and at (1000, 1003), into
+   a fresh NaN-filled buffer; time it, ``torch.mul`` and the bytes bound;
+   then run ``xclip_tpu_torch.tools.probe_bandwidth.main`` once per launch
+   and with ``--chain 10`` (counts zeroed before, read after, exact);
+7. the SAE path at full width: a seeded synthetic DomainNet tree (six
+   domains, 8,400 train and 600 test JPEGs), a seeded RN50 ``.pt`` with
+   random BatchNorms (``randomize_bn``); K1/K2
+   against plain in fp32 at every shape of the path's image batches (1024,
+   the ragged 208 and 600, and 256 and 88 of the feature CLI); then
+   ``xclip_tpu_torch.scripts.train_sae.main`` (features cached in fp32
+   through K1/K2, then the 1024 -> 4096 SAE at batch 4096, 4 epochs,
+   resampling every 2) and ``save_domainnet_features.main``, each with
+   exact launch counts; check the shards, what each resample wrote (unit
+   store rows in the dead decoder columns, encoder rows at 0.2x the alive
+   norm, zero biases and moments, the rest untouched), the checkpoint, the
+   unit-norm decoder and that every epoch without a resample lowers the
+   validation loss (the first one below its value at init); hold the fp32
+   image tower through the kernels against its plain route at the cache's
+   batch and its ragged tail; time that tower and a steady-state SAE step
+   (CUDA events over 30 steps), and profile three SAE steps;
+   7b. one fp32 SAE step at full width on the card against the CPU: the
+   loss, the gradients (in norm), and the parameters after a step from the
+   same gradients;
+8. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Per-shape numbers also go
 to ``build/chip_smoke_report.json`` (nvcc's register/spill report is
@@ -46,7 +70,9 @@ to ``build/chip_smoke_report.json`` (nvcc's register/spill report is
 
 from __future__ import annotations
 
+import ast
 import json
+import logging
 import math
 import os
 import shutil
@@ -91,6 +117,14 @@ N_TEMPLATES = 86
 N_IMAGENET_CLASSES, N_DOMAINNET_CLASSES = 1000, 345
 IMAGENET_WNIDS, IMAGES_PER_WNID = 10, 5
 MAIN_CHECK_TOL = 1e-3
+# the SAE path (scripts/train_sae.py defaults: 1024 -> 4x, batch 4096, one hook point)
+SAE_D, SAE_M, SAE_BATCH = 1024, 4096, 4096
+SAE_TRAIN_PER_DOMAIN, SAE_TEST_PER_DOMAIN = 1400, 100  # 8,400 train: two steps per epoch
+SAE_EPOCHS, SAE_RESAMPLE_FREQ, SAE_TIMED_STEPS = 4, 2, 30
+SAE_CACHE_BS, SAE_FEATURES_BS = 1024, 256  # --activations_bs default; save_domainnet_features' batch
+SAE_RESAMPLE_ROWS = 8192  # --resample_dataset_size: at most the 8,400 cached train rows
+SAE_STEP_RTOL = 1e-5     # phase 7b: loss, card vs CPU (fp32 summation order)
+SAE_PARAM_TOL = 1e-4     # phase 7b: gradients (in norm) and parameters after the step (of each tensor's scale)
 
 
 def log(msg: str) -> None:
@@ -524,20 +558,25 @@ def profile_towers(torch, model, images, ids, top: int = 12):
     return {"total_ms": total, "top": [{"kernel": k, "ms": ms, "count": c} for k, ms, c in rows[:top]]}
 
 
-def phase_card_vs_cpu(torch, factory, tokenizer_mod, model_gpu):
-    """8 images and 4 prompts in fp32: card vs the port on the CPU, same
-    weights. BatchNorm parameters and statistics are set to seeded random
-    values on both first: the random init zeroes bn3, which would hide the
-    conv1/conv3 kernels' contribution."""
-    model_cpu = factory.create_model("RN50", seed=0, device="cpu")
-    gen = torch.Generator().manual_seed(2)
-    sd = model_cpu.state_dict()
+def randomize_bn(torch, sd: dict, gen) -> dict:
+    """Seeded random BatchNorm scales, biases and running statistics in an
+    RN50 state dict, in place: the random init zeroes bn3's scale, which
+    would hide the conv1/conv3 kernels' contribution to the features."""
     for key, val in sd.items():
         if ".bn" in key or "downsample.1" in key or key.startswith("visual.bn"):
             if key.endswith(("weight", "running_var")):
                 sd[key] = torch.rand(val.shape, generator=gen) + 0.5
             elif key.endswith(("bias", "running_mean")):
                 sd[key] = torch.randn(val.shape, generator=gen) * 0.1
+    return sd
+
+
+def phase_card_vs_cpu(torch, factory, tokenizer_mod, model_gpu):
+    """8 images and 4 prompts in fp32: card vs the port on the CPU, same
+    weights, BatchNorms randomized (``randomize_bn``)."""
+    model_cpu = factory.create_model("RN50", seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    sd = randomize_bn(torch, model_cpu.state_dict(), gen)
     model_cpu.load_state_dict(sd)
     model_gpu.load_state_dict(sd)
     x = torch.randn(8, 224, 224, 3, generator=gen)
@@ -588,9 +627,13 @@ def train_counts(fused_conv, flash_attention) -> dict:
 
 
 def zero_counts(fused_conv, flash_attention) -> None:
+    """Every kernel's launch count and every Function's backward count to 0."""
+    from xclip_tpu_torch.ops import stream_scale
+
     fused_conv.launches = fused_conv.launches_with_identity = fused_conv.stats_launches = 0
     fused_conv.affine_act_backward_calls = fused_conv.stats_backward_calls = 0
     flash_attention.launches = flash_attention.backward_calls = 0
+    stream_scale.launches = 0
 
 
 def phase_train(torch, factory, train_main, fused_conv, flash_attention, rn50):
@@ -743,14 +786,536 @@ def phase_train_card_vs_cpu(torch, factory):
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
 
 
+def phase_stream_scale(torch, stream_scale, probe_bandwidth):
+    """K5 vs plain bit for bit (fresh NaN-filled output, another buffer than
+    x), its times at the probe's shape, then the probe's entry point in both
+    modes with exact launch counts."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    side = probe_bandwidth.SIDE
+    checked = []
+    for shape, scale in (((1000, 1003), 1.5), ((1000, 1003), stream_scale.PROBE_SCALE),
+                         ((side, side), stream_scale.PROBE_SCALE)):  # x stays at the probe's shape
+        x = (torch.rand(shape, device="cuda", generator=gen) * 4 - 2).to(torch.bfloat16)
+        got = stream_scale.stream_scale(x, scale, nan_fill_output=True)
+        ref = stream_scale.stream_scale_plain(x, scale)
+        torch.cuda.synchronize()
+        if got.data_ptr() == x.data_ptr():
+            fail(f"stream_scale {shape} returned its input buffer")
+        differ = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+        if differ:
+            fail(f"stream_scale {shape} scale {scale}: {differ} elements differ in bits from the plain version")
+        checked.append(f"{shape[0]}x{shape[1]} scale {scale}")
+        del got, ref
+    log(f"  K5 bit-identical to torch.mul into fresh NaN-filled buffers: {', '.join(checked)}")
+    s = torch.tensor(stream_scale.PROBE_SCALE, dtype=torch.bfloat16)
+    rec = {"kernel": "K5", "dtype": "bf16", "shape": [side, side], "max_abs_err": 0.0,
+           "kernel_ms": time_ms(lambda: stream_scale.stream_scale(x), 200, 200),
+           "plain_ms": time_ms(lambda: stream_scale.stream_scale_plain(x), 200, 200),
+           "library_ms": time_ms(lambda: torch.mul(x, s), 200, 200)}
+    nbytes = 2 * x.numel() * x.element_size()  # read x once, write the output once
+    bound(rec, float(x.numel()), nbytes, "fp32")  # one fp32 multiply per element
+    rec["kernel_gbps"] = nbytes / rec["kernel_ms"] / 1e6
+    rec["library_gbps"] = nbytes / rec["library_ms"] / 1e6
+    log(f"  K5 bf16 {side}x{side}: kernel_ms={rec['kernel_ms']:.4f} ({rec['kernel_gbps']:.1f} GB/s) "
+        f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} ({rec['library_gbps']:.1f} GB/s) "
+        f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})")
+    del x
+    torch.cuda.empty_cache()
+
+    from xclip_tpu_torch.ops import flash_attention, fused_conv
+
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    single = probe_bandwidth.main([])
+    chained = probe_bandwidth.main(["--chain", "10"])
+    torch.cuda.synchronize()
+    launches = stream_scale.launches
+    others = fused_conv.launches + fused_conv.stats_launches + flash_attention.launches
+    want = (1 + 20) + (1 + 5) * 10  # warm-up + timed calls, one launch each, then 10 per chained call
+    log(f"  probe: {single['kernel_stream_gbps']:.1f} vs torch {single['torch_stream_gbps']:.1f} GB/s; "
+        f"chain=10: {chained['kernel_stream_gbps']:.1f} vs {chained['torch_stream_gbps']:.1f} GB/s; "
+        f"launches {launches} (expected {want})")
+    if launches != want or others:
+        fail(f"the probe launched K5 {launches} times (expected {want}) and other kernels {others} times")
+    for res in (single, chained):
+        if not all(math.isfinite(res[k]) and res[k] > 0 for k in ("torch_ms", "kernel_ms")):
+            fail(f"probe timings {res}")
+    rec.update(probe=single, probe_chain=chained, launches=launches)
+    return rec
+
+
+def make_domainnet_tree(root: str) -> int:
+    """Seeded DomainNet tree of small JPEGs (48 x 64 random colours, 512
+    distinct images, resized to 224 by the eval transform): six domains,
+    ``{domain}_{train,test}.tsv`` rows path<TAB>label<TAB>caption."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    pool = []
+    for _ in range(512):
+        img = rng.randint(0, 256, (48, 64, 3)).astype(np.int32) // 2 + rng.randint(0, 128, (1, 1, 3))
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        pool.append(buf.getvalue())
+    n = 0
+    for domain in ("clipart", "infograph", "painting", "quickdraw", "real", "sketch"):
+        for split, count in (("train", SAE_TRAIN_PER_DOMAIN), ("test", SAE_TEST_PER_DOMAIN)):
+            rows = []
+            for i in range(count):
+                label = int(rng.randint(0, N_DOMAINNET_CLASSES))
+                rel = f"{domain}/c{label}/{split}{i}.jpg"
+                os.makedirs(os.path.join(root, domain, f"c{label}"), exist_ok=True)
+                with open(os.path.join(root, rel), "wb") as fh:
+                    fh.write(pool[rng.randint(len(pool))])
+                rows.append(f"{rel}\t{label}\ta {domain} of thing {label}.")
+                n += 1
+            with open(os.path.join(root, f"{domain}_{split}.tsv"), "w") as fh:
+                fh.write("\n".join(rows) + "\n")
+    return n
+
+
+class _LogCollector(logging.Handler):
+    """Messages of the root logger while in a ``with`` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def phase_sae_kernel_shapes(torch, fused_conv, rn50, batches) -> dict:
+    """K1/K2 vs plain in fp32 at every fused-conv shape of the SAE path's
+    image batches (the feature cache's full and ragged batches, and
+    save_domainnet_features'): phase 3 checks the eval batch of 250 only."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    unique = sorted({s[1:] for bsz in batches for s in fused_conv_shapes(rn50.vision, bsz)}, reverse=True)
+    errs = {"K1": 0.0, "K2": 0.0}
+    for m, k, c, ident, relu in unique:
+        z = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(k, c, device="cuda", generator=gen) / math.sqrt(k)
+        g = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.1
+        idn = torch.randn(m, c, device="cuda", generator=gen) if ident else None
+        got = fused_conv.matmul_affine_act(z, w, g, b, idn, relu=relu)
+        ref = fused_conv.matmul_affine_act_plain(z, w, g, b, idn, relu=relu)
+        ok, err = close(got, ref, TOLERANCE["fp32"])
+        kid = "K2" if ident else "K1"
+        errs[kid] = max(errs[kid], err)
+        if not ok:
+            fail(f"matmul_affine_act fp32 M={m} K={k} C={c} id={ident} (SAE path): max_abs_err {err}")
+        del z, w, g, b, idn, got, ref
+    torch.cuda.empty_cache()
+    log(f"  K1/K2 fp32 vs plain at the SAE path's {len(unique)} shapes (image batches {batches}, largest M "
+        f"{unique[0][0]}): max_abs_err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g} (tolerance {TOLERANCE['fp32']})")
+    return {"batches": batches, "shapes": len(unique), "max_abs_err": errs}
+
+
+def check_tower_routes(torch, fused_conv, enc, images, tail: int, per_batch: int) -> dict:
+    """The fp32 image tower through the kernels against the same model with
+    its 1x1 convs on the plain route, at the cache's batch and its ragged
+    tail; the kernel route launches ``per_batch`` kernels, the plain none."""
+    from xclip_tpu_torch.models import resnet
+
+    errs = {}
+    with torch.inference_mode():
+        for n in (len(images), tail):
+            before = fused_conv.launches
+            got = enc.encode_image(images[:n], normalize=True)
+            kernel_route, resnet.matmul_affine_act = resnet.matmul_affine_act, fused_conv.matmul_affine_act_plain
+            try:
+                ref = enc.encode_image(images[:n], normalize=True)
+            finally:
+                resnet.matmul_affine_act = kernel_route
+            torch.cuda.synchronize()
+            launched = fused_conv.launches - before
+            ok, errs[n] = close(got, ref, TOLERANCE["fp32"])
+            if launched != per_batch or not ok:
+                fail(f"encode_image fp32 batch {n}: {launched} kernel launches (expected {per_batch}), kernel route vs "
+                     f"plain route max_abs_err {errs[n]}")
+    log(f"  encode_image fp32, kernel route vs plain route: max_abs_err {errs} by batch "
+        f"(tolerance {TOLERANCE['fp32']})")
+    return errs
+
+
+class _ResampleRecorder:
+    """Copies of the SAE parameters and Adam moments just before and after
+    each ``Pipeline.update_parameters`` (one per resample), with its dead
+    indices, while in a ``with`` block."""
+
+    def __init__(self, torch, pipeline_mod, sae_model):
+        self.torch, self.cls, self.tree_map = torch, pipeline_mod.Pipeline, sae_model.tree_map
+        self.records = []
+
+    def _state(self, pipe):
+        return self.tree_map(self.torch.clone, {"p": pipe.params, "mu": pipe.opt_state.mu, "nu": pipe.opt_state.nu})
+
+    def __enter__(self):
+        self.orig = self.cls.update_parameters
+
+        def update_parameters(pipe, updates):
+            before = self._state(pipe)
+            self.orig(pipe, updates)
+            self.records.append((updates.dead_neuron_indices.copy(), before, self._state(pipe)))
+
+        self.cls.update_parameters = update_parameters
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update_parameters = self.orig
+
+
+def check_resample(torch, dead, before, after, store) -> dict:
+    """What one resample wrote (component 0 of the components layout): at
+    the dead neurons, decoder columns that are unit rows of the feature
+    store, encoder rows in the same directions at 0.2x the mean alive
+    encoder-row norm, zero encoder biases and zero Adam moments; every
+    other parameter and moment unchanged, bit for bit."""
+    m = before["p"]["encoder"]["bias"].shape[-1]
+    dead_t = torch.as_tensor(dead, device="cuda")
+    alive = torch.ones(m, dtype=torch.bool, device="cuda")
+    alive[dead_t] = False
+    untouched = all(torch.equal(after[part]["tied_bias"], before[part]["tied_bias"]) and
+                    torch.equal(after[part]["encoder"]["weight"][0][alive], before[part]["encoder"]["weight"][0][alive])
+                    and torch.equal(after[part]["encoder"]["bias"][0][alive], before[part]["encoder"]["bias"][0][alive])
+                    and torch.equal(after[part]["decoder"]["weight"][0][:, alive],
+                                    before[part]["decoder"]["weight"][0][:, alive]) for part in ("p", "mu", "nu"))
+    if not len(dead):
+        if not untouched:
+            fail("a resample of no neurons changed the parameters or moments")
+        return {"dead": 0}
+    dec = after["p"]["decoder"]["weight"][0][:, dead_t].T.double()  # (n_dead, d)
+    dec_norm = dec.norm(dim=1)
+    unit_store = torch.from_numpy(store).to("cuda", torch.float64)
+    unit_store /= unit_store.norm(dim=1, keepdim=True)
+    best_cos = ((dec / dec_norm[:, None]) @ unit_store.T).max(dim=1).values
+    enc = after["p"]["encoder"]["weight"][0][dead_t].double()
+    enc_norm = enc.norm(dim=1)
+    want_norm = 0.2 * float(before["p"]["encoder"]["weight"][0][alive].double().norm(dim=1).mean())
+    enc_cos = ((enc / enc_norm[:, None]) * (dec / dec_norm[:, None])).sum(dim=1)
+    res = {"dead": len(dead), "decoder_norm_err": float((dec_norm - 1).abs().max()),
+           "decoder_store_cos_min": float(best_cos.min()),
+           "encoder_norm_rel_err": float((enc_norm / want_norm - 1).abs().max()),
+           "encoder_decoder_cos_min": float(enc_cos.min()),
+           "dead_bias_max": float(after["p"]["encoder"]["bias"][0][dead_t].abs().max())}
+    moments_zero = all(not after[part][a][b][0][dead_t].any() for part in ("mu", "nu")
+                       for a, b in (("encoder", "weight"), ("encoder", "bias"))) and \
+        all(not after[part]["decoder"]["weight"][0][:, dead_t].any() for part in ("mu", "nu"))
+    if not (res["decoder_norm_err"] < 1e-3 and res["decoder_store_cos_min"] > 1 - 1e-5
+            and res["encoder_norm_rel_err"] < 1e-3 and res["encoder_decoder_cos_min"] > 1 - 1e-5
+            and res["dead_bias_max"] == 0.0 and moments_zero and untouched):
+        fail(f"resample of {len(dead)} neurons wrote {res}; dead moments zero: {moments_zero}; "
+             f"the rest unchanged: {untouched}")
+    return res
+
+
+def sae_path_counts(fused_conv, flash_attention) -> dict:
+    from xclip_tpu_torch.ops import stream_scale
+
+    return {"K1": fused_conv.launches - fused_conv.launches_with_identity,
+            "K2": fused_conv.launches_with_identity, "K3": fused_conv.stats_launches,
+            "K4": flash_attention.launches, "K5": stream_scale.launches}
+
+
+def phase_sae(torch, factory, fused_conv, flash_attention, rn50):
+    """The SAE CLI and the feature CLI at full width, with exact counts."""
+    import numpy as np
+
+    from xclip_tpu_torch.sae import losses, model as sae_model, optim as sae_optim, pipeline
+    from xclip_tpu_torch.scripts import save_domainnet_features, train_sae
+
+    t0 = time.perf_counter()
+    tree = os.path.join(SCRATCH, "domainnet")
+    n_images = make_domainnet_tree(tree)
+    log(f"  synthetic DomainNet tree: {n_images} JPEGs in {time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(SCRATCH, "sae_rn50.pt")
+    # BatchNorms randomized, so that every 1x1 conv of the tower reaches the cached features
+    sd = randomize_bn(torch, factory.create_model("RN50", seed=0, device="cpu").state_dict(),
+                      torch.Generator().manual_seed(11))
+    torch.save({"epoch": 1, "name": "chip_smoke", "state_dict": sd}, ckpt)
+    out = os.path.join(SCRATCH, "sae")
+    n_train, n_val = 6 * SAE_TRAIN_PER_DOMAIN, 6 * SAE_TEST_PER_DOMAIN
+    # the image batches of the path: full and ragged, cache (1024) and save_domainnet_features (256)
+    batches = sorted({size for n, bs in ((n_train, SAE_CACHE_BS), (n_val, SAE_CACHE_BS), (n_val, SAE_FEATURES_BS))
+                      for size in (bs if n >= bs else 0, n % bs) if size}, reverse=True)
+    shape_check = phase_sae_kernel_shapes(torch, fused_conv, rn50, batches)
+    argv = ["--out_dir", out, "--ckpt_path", ckpt, "--domainnet_path", tree, "--domainnet_only",
+            "--img_enc_name", "RN50", "--input_dim", str(SAE_D), "--expansion_factor", str(SAE_M // SAE_D),
+            "--train_sae_bs", str(SAE_BATCH), "--hook_points", "out", "--activations_bs", str(SAE_CACHE_BS),
+            "--num_workers", "8", "--resample_freq", str(SAE_RESAMPLE_FREQ), "--resample_dataset_size", str(SAE_RESAMPLE_ROWS),
+            "--val_freq", str(n_train), "--num_epochs", str(SAE_EPOCHS), "--device", "cuda"]
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    with _LogCollector() as logs, _ResampleRecorder(torch, pipeline, sae_model) as resamples:
+        rc = train_sae.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sae_path_counts(fused_conv, flash_attention)
+    if rc != 0:
+        fail(f"train_sae.main returned {rc}")
+    per_batch = fused_conv_shapes(rn50.vision, 1)
+    k1_per, k2_per = sum(not s[4] for s in per_batch), sum(s[4] for s in per_batch)  # 20 and 16 for RN50
+    batches = math.ceil(n_train / SAE_CACHE_BS) + math.ceil(n_val / SAE_CACHE_BS)
+    want = {"K1": k1_per * batches, "K2": k2_per * batches, "K3": 0, "K4": 0, "K5": 0}
+    # the CLI logs each phase's time: "cached ... in X s", "trained ... in X s"
+    cache_s = sum(float(m.split(" in ")[-1].split()[0]) for m in logs.messages if m.startswith("cached"))
+    train_s = sum(float(m.split(" in ")[-1].split()[0]) for m in logs.messages if m.startswith("trained"))
+    log(f"  train_sae.main: wall {wall:.2f} s; feature cache (RN50 fp32, batch {SAE_CACHE_BS}) {n_train + n_val} "
+        f"images in {cache_s:.2f} s ({(n_train + n_val) / cache_s:.1f} img/s, decode included); SAE training "
+        f"{train_s:.2f} s; launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"feature-cache launch counts {counts} differ from the path's {want}")
+    acts = os.path.join(out, "activations")
+    shards = {f: np.load(os.path.join(acts, f)) for f in sorted(os.listdir(acts))}
+    shapes = {f: (a.shape, str(a.dtype)) for f, a in shards.items()}
+    if shapes != {"train_activations.npy": ((n_train, SAE_D), "float16"),
+                  "train_val_activations.npy": ((n_val, SAE_D), "float16")}:
+        fail(f"feature shards {shapes}")
+    norms = np.linalg.norm(np.concatenate(list(shards.values())).astype(np.float32), axis=1)
+    if not (np.isfinite(norms).all() and np.abs(norms - 1).max() < 2e-3):
+        fail(f"cached features are not unit-norm fp16: |norm - 1| up to {np.abs(norms - 1).max()}")
+    resampled = [int(m.split()[1]) for m in logs.messages if m.startswith("Resampling")]
+    if len(resampled) != SAE_EPOCHS // SAE_RESAMPLE_FREQ or [len(r[0]) for r in resamples.records] != resampled:
+        fail(f"expected {SAE_EPOCHS // SAE_RESAMPLE_FREQ} resamples, logged {resampled}, recorded "
+             f"{[len(r[0]) for r in resamples.records]}")
+    resample_checks = [check_resample(torch, *rec, shards["train_activations.npy"]) for rec in resamples.records]
+    log(f"  resamples at full width: {resample_checks}")
+    sd = torch.load(os.path.join(out, "checkpoints", "sparse_autoencoder_final.pt"), weights_only=True)
+    want_shapes = {"tied_bias": (1, SAE_D), "encoder._weight": (1, SAE_M, SAE_D), "encoder._bias": (1, SAE_M),
+                   "decoder._weight": (1, SAE_D, SAE_M)}
+    if {k: tuple(v.shape) for k, v in sd.items()} != want_shapes:
+        fail(f"SAE checkpoint keys/shapes {[(k, tuple(v.shape)) for k, v in sd.items()]}")
+    # the last resample follows the last epoch's steps: the final checkpoint holds what it wrote
+    last = sae_model.sae_params_to_state_dict(resamples.records[-1][2]["p"])
+    if not all(torch.equal(sd[k].cpu(), last[k].cpu()) for k in want_shapes):
+        fail("the final checkpoint differs from the parameters the last resample wrote")
+    col_err = float((torch.linalg.vector_norm(sd["decoder._weight"], dim=-2) - 1).abs().max())
+    if col_err > 1e-4:
+        fail(f"decoder columns off unit norm by {col_err}")
+    # validation loss: at the CLI's initial parameters (seed 49), after each
+    # epoch (the CLI's log; an epoch validates after its resample), and of
+    # the final checkpoint. Each epoch without a resample must lower it: the
+    # first below its value at init, a later one below the epoch before.
+    cfg = sae_model.SAECfg(SAE_D, SAE_M, n_components=1)
+    init = sae_model.sae_init(torch.Generator().manual_seed(49), cfg, device="cuda")
+    val_store = shards["train_val_activations.npy"][:, None, :]
+    loss_cfg = losses.SAELossCfg(3e-4)
+    val_init = pipeline.Pipeline(init, loss_cfg, sae_optim.adam(), SCRATCH).validation(val_store, SAE_BATCH)
+    final = sae_model.sae_state_dict_to_params(sd, device="cuda")
+    val_final = pipeline.Pipeline(final, loss_cfg, sae_optim.adam(), SCRATCH).validation(val_store, SAE_BATCH)
+    per_epoch = [ast.literal_eval(m.split("validation: ", 1)[1])["total_loss"]
+                 for m in logs.messages if m.startswith("epoch ") and " validation: " in m]
+    resample_epochs = {e for e in range(SAE_EPOCHS) if (e + 1) % SAE_RESAMPLE_FREQ == 0}
+    log(f"  SAE {SAE_D} -> {SAE_M}, batch {SAE_BATCH}, {SAE_EPOCHS} epochs ({SAE_EPOCHS * (n_train // SAE_BATCH)} "
+        f"steps): resampled {resampled} dead neurons after epochs {sorted(resample_epochs)}; val total loss "
+        f"{val_init['total_loss']:.6g} at init, {[round(v, 6) for v in per_epoch]} after each epoch, "
+        f"{val_final['total_loss']:.6g} from the final checkpoint (below init: "
+        f"{val_final['total_loss'] < val_init['total_loss']}); decoder columns unit norm within {col_err:.2g}")
+    if len(per_epoch) != SAE_EPOCHS or abs(per_epoch[-1] - val_final["total_loss"]) > 1e-5 * abs(val_final["total_loss"]):
+        fail(f"logged validations {per_epoch} vs the final checkpoint's {val_final['total_loss']}")
+    before = [val_init["total_loss"]] + per_epoch[:-1]
+    for e in range(SAE_EPOCHS):
+        if e not in resample_epochs and not per_epoch[e] < before[e]:
+            fail(f"epoch {e} (no resample) did not lower the validation loss: {before[e]} -> {per_epoch[e]}")
+
+    # the image tower alone at the cache's batch (fp32, device time): the
+    # cache's rate above adds JPEG decode and the host-to-device copy
+    enc = factory.create_model("RN50", pretrained=ckpt, device="cuda")
+    images = torch.randn(SAE_CACHE_BS, rn50.image_size, rn50.image_size, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(9))
+    with torch.inference_mode():
+        encode_ms = time_ms(lambda: enc.encode_image(images, normalize=True), 300, 5)
+    log(f"  encode_image fp32 batch {SAE_CACHE_BS}: {encode_ms:.2f} ms ({SAE_CACHE_BS / encode_ms * 1e3:.1f} img/s "
+        f"on the device)")
+    route_errs = check_tower_routes(torch, fused_conv, enc, images, n_train % SAE_CACHE_BS, len(per_batch))
+    del enc, images
+    torch.cuda.empty_cache()
+
+    feats_out = os.path.join(SCRATCH, "dn_features")
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    rc = save_domainnet_features.main(["--model", "RN50", "--ckpt_files", ckpt, "--out_path", feats_out,
+                                       "--domainnet_path", tree, "--num_workers", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    fcounts = sae_path_counts(fused_conv, flash_attention)
+    fb = math.ceil(n_val / SAE_FEATURES_BS)
+    fwant = {"K1": k1_per * fb, "K2": k2_per * fb, "K3": 0, "K4": 0, "K5": 0}
+    log(f"  save_domainnet_features: {n_val} images in {feat_s:.2f} s; launches {fcounts} (expected {fwant})")
+    if rc != 0 or fcounts != fwant:
+        fail(f"save_domainnet_features rc {rc}, launch counts {fcounts} (expected {fwant})")
+    img_feat = np.load(os.path.join(feats_out, "img_feat.npy"))
+    ids = np.load(os.path.join(feats_out, "domain_ids.npy"))
+    labels = np.load(os.path.join(feats_out, "domain_labels.npy"))
+    if img_feat.shape != (1, n_val, rn50.embed_dim) or ids.shape != (n_val,) or labels.shape != (n_val,) \
+            or np.unique(ids).size != 6 or not np.isfinite(img_feat).all():
+        fail(f"features {img_feat.shape}, ids {ids.shape} ({np.unique(ids).size} domains), labels {labels.shape}")
+    # the first 8 validation images, encoded in fp32 by the port on the CPU
+    from xclip_tpu_torch.data.datasets import DomainNetCaptions
+    from xclip_tpu_torch.data.transforms import image_transform
+
+    ds = DomainNetCaptions(tree, "val", image_transform(rn50.image_size), mode="none")
+    cpu_model = factory.create_model("RN50", pretrained=ckpt, device="cpu")
+    with torch.inference_mode():
+        ref = cpu_model.encode_image(torch.from_numpy(np.stack([ds[i] for i in range(8)])), normalize=True)
+    feat_err = float(np.abs(img_feat[0, :8] - ref.numpy()).max())
+    log(f"  fp32 features, card vs CPU on 8 images: max_abs_err {feat_err:.3g} (tolerance {MAIN_CHECK_TOL})")
+    if feat_err > MAIN_CHECK_TOL:
+        fail("saved DomainNet features disagree with the CPU")
+    del cpu_model
+    sae = {"cache_s": cache_s, "cache_images": n_train + n_val, "cache_images_per_s": (n_train + n_val) / cache_s,
+           "encode_fp32_batch_ms": encode_ms, "encode_fp32_images_per_s": SAE_CACHE_BS / encode_ms * 1e3,
+           "train_s": train_s, "cli_wall_s": wall, "resampled": resampled, "val_loss_init": val_init, "val_total_per_epoch": per_epoch,
+           "val_loss_final": val_final,
+           "decoder_unit_norm_err": col_err, "features_s": feat_s, "features_card_vs_cpu": feat_err,
+           "kernel_shapes": shape_check, "tower_kernel_vs_plain_route": route_errs, "resamples": resample_checks}
+    return {"cache": counts, "features": fcounts}, sae, shards["train_activations.npy"]
+
+
+def phase_sae_step_timing(torch, store):
+    """Steady-state SAE step at 1024 -> 4096, batch 4096 (components layout)
+    on cached features: CUDA events over 30 steps after 3 warm-up steps,
+    then torch.profiler over 3 more."""
+    from xclip_tpu_torch.sae import losses, model as sae_model, optim as sae_optim, pipeline
+
+    params = sae_model.sae_init(torch.Generator().manual_seed(0), sae_model.SAECfg(SAE_D, SAE_M, 1), device="cuda")
+    adam = sae_optim.adam(1e-4)
+    state = adam.init(params)
+    loss_cfg = losses.SAELossCfg(3e-4)
+    batch = torch.from_numpy(store[:SAE_BATCH, None, :]).to("cuda", torch.float32)
+    for _ in range(3):
+        params, metrics, _ = pipeline.train_step(params, adam, state, loss_cfg, batch)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SAE_TIMED_STEPS):
+        params, metrics, _ = pipeline.train_step(params, adam, state, loss_cfg, batch)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / SAE_TIMED_STEPS
+    step_ms = start.elapsed_time(end) / SAE_TIMED_STEPS
+    if not math.isfinite(float(metrics["total_loss"])):
+        fail("non-finite SAE loss in the timed steps")
+    flops = 6 * 2.0 * SAE_BATCH * SAE_D * SAE_M  # 2 forward products, 4 backward (dW_dec, dlearned, dW_enc, dx)
+    bound_ms = flops / PEAK_FLOPS["fp32"] * 1e3
+    log(f"  steady-state SAE step: {step_ms:.3f} ms (CUDA events, mean of {SAE_TIMED_STEPS}; host {host_ms:.3f} ms), "
+        f"{1e3 / step_ms:.1f} steps/s, {SAE_BATCH * 1e3 / step_ms:.0f} activations/s; fp32 bound "
+        f"{bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP at 67 TFLOP/s)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            params, metrics, _ = pipeline.train_step(params, adam, state, loss_cfg, batch)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    log(f"  profiler: device time over 3 SAE steps: {total:.2f} ms ({100 * total / (3 * step_ms):.1f} % of 3 steps)")
+    for key, ms, count in rows[:10]:
+        log(f"    {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f} % x{count:<5d} {key[:110]}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "host_step_ms": host_ms, "steps_per_s": 1e3 / step_ms,
+            "activations_per_s": SAE_BATCH * 1e3 / step_ms, "bound_ms": bound_ms, "gflop_per_step": flops / 1e9,
+            "profiled_device_ms_3_steps": total,
+            "top": [{"kernel": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+
+
+class _GradTap:
+    """The optimizer handed to ``train_step``: keeps a CPU copy of the
+    gradients it receives and steps with ``replace`` instead when set."""
+
+    def __init__(self, adam, tree_map, replace=None):
+        self.adam, self.tree_map, self.replace, self.grads = adam, tree_map, replace, None
+
+    def update(self, grads, state, params):
+        self.grads = self.tree_map(lambda t: t.detach().cpu().clone(), grads)
+        if self.replace is not None:
+            device = params["tied_bias"].device
+            grads = self.tree_map(lambda t: t.to(device), self.replace)
+        return self.adam.update(grads, state, params)
+
+
+def phase_sae_card_vs_cpu(torch, store):
+    """One fp32 SAE step at full width from the same parameters and batch on
+    the card and on the CPU: the loss; the gradients Adam receives (after
+    ``remove_parallel_gradient``) per tensor as ||card - CPU|| / ||CPU||;
+    the parameters after the card's step taken with the CPU's gradients, as
+    the largest difference over each tensor's largest magnitude. A norm for
+    the gradients, as in phase 3b: a pre-activation within rounding of 0
+    fires on one device and not the other, which moves its neuron's
+    gradient by one item's whole contribution. Adam's first step is about
+    lr x sign(gradient), so it turns such a difference into a step of up to
+    2 x lr: the card's step on its own gradients is reported beside."""
+    import numpy as np
+
+    from xclip_tpu_torch.sae import losses, model as sae_model, optim as sae_optim, pipeline
+
+    params = sae_model.sae_init(torch.Generator().manual_seed(1), sae_model.SAECfg(SAE_D, SAE_M, 1))
+    batch = torch.from_numpy(store[-SAE_BATCH:, None, :]).float()
+    tree_map, leaves = sae_model.tree_map, sae_model.tree_leaves
+
+    def step(device, tap):
+        p = tree_map(lambda t: t.to(device), params)
+        adam = sae_optim.adam(1e-4)
+        tap.adam = adam
+        new, metrics, fired = pipeline.train_step(p, tap, adam.init(p), losses.SAELossCfg(3e-4), batch.to(device))
+        return float(metrics["total_loss"]), sae_model.sae_params_to_numpy(new), fired.cpu()
+
+    def scale_err(got, want):
+        return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(leaves(got), leaves(want)))
+
+    cpu_tap, own_tap = _GradTap(None, tree_map), _GradTap(None, tree_map)
+    loss_cpu, p_cpu, fired_cpu = step("cpu", cpu_tap)
+    loss_card, p_own, fired_card = step("cuda", own_tap)
+    _, p_card, _ = step("cuda", _GradTap(None, tree_map, replace=cpu_tap.grads))
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_errs = {name: norm_rel_err(a, b) for name, a, b in zip(("tied_bias", "encoder.weight", "encoder.bias",
+                                                                 "decoder.weight"),
+                                                                leaves(own_tap.grads), leaves(cpu_tap.grads))}
+    grad_max_errs = [rel_err(a, b) for a, b in zip(leaves(own_tap.grads), leaves(cpu_tap.grads))]
+    param_err = scale_err(p_card, p_cpu)
+    own_err = scale_err(p_own, p_cpu)
+    fired_diff = int((fired_card - fired_cpu).abs().sum())
+    log(f"  fp32 SAE step {SAE_D} -> {SAE_M}, batch {SAE_BATCH}, card vs CPU: loss rel err {loss_err:.3g} "
+        f"(tolerance {SAE_STEP_RTOL}); gradients ||card - CPU|| / ||CPU|| "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} } (tolerance {SAE_PARAM_TOL}; largest element "
+        f"{max(grad_max_errs):.3g} of scale; {fired_diff} (item, neuron) firings differ); parameters after the step "
+        f"from the same gradients {param_err:.3g} of scale (tolerance {SAE_PARAM_TOL}), from each device's own "
+        f"{own_err:.3g}")
+    if not math.isfinite(loss_card) or loss_err > SAE_STEP_RTOL or max(grad_errs.values()) > SAE_PARAM_TOL \
+            or param_err > SAE_PARAM_TOL:
+        fail("card and CPU disagree on the fp32 SAE step")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_errs, "grad_max_rel_err": max(grad_max_errs),
+            "fired_differences": fired_diff, "param_rel_err": param_err, "param_rel_err_own_gradients": own_err}
+
+
 def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bwd_records, bwd_errs,
-              text_layers: int):
+              text_layers: int, sae_counts, k5):
     """One entry per kernel. K1/K2 are timed over one 250-image eval batch
     (the sum over its launches of the per-shape times), K4 over one full
     text chunk (one launch per text block), K3 over one 128-image training
     forward (16 launches). The top-level numbers are bf16, the main paths'
     dtype; ``by_dtype`` holds the same sums for fp32, bf16 and fp16.
-    ``launches`` counts both main paths' runs (``launches_by_path``).
+    ``launches`` counts the main paths' runs (``launches_by_path``: the LSO
+    evaluation, training, and the SAE path's two feature CLIs). K5 is timed
+    over one pass of the probe's 8192 x 8192 bf16 array, its launches are
+    the probe's two runs.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -786,7 +1351,8 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         bf16 = by_dtype["bf16"]
         per = {"K4": f"one {TEXT_CHUNK}-prompt text chunk", "K3": f"one {TRAIN_BATCH}-image RN50 training forward"
                }.get(kid, f"one {BATCH}-image RN50 eval batch")
-        by_path = {"lso_eval": counts.get(kid, 0), "train": train_counts_[kid]}
+        by_path = {"lso_eval": counts.get(kid, 0), "train": train_counts_[kid],
+                   "sae_feature_cache": sae_counts["cache"][kid], "save_domainnet_features": sae_counts["features"][kid]}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
             "route": "plain PyTorch in a torch.autograd.Function (no backward kernel yet)",
@@ -808,12 +1374,21 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                        "backward: agrees with autograd of plain in fp32/bf16, ran in training"),
             "by_dtype": by_dtype, "backward": backward,
         })
+    entries.append({
+        "name": "stream_scale (K5: bf16 streaming copy-and-scale, the bandwidth probe)", "route": "cuda",
+        "source": "xclip_tpu_torch/ops/csrc/stream_scale.cu", "replaces": "tools/probe_mosaic.py:72",
+        "launches": k5["launches"], "launches_by_path": {"probe_bandwidth": k5["launches"]},
+        "max_abs_err": k5["max_abs_err"], "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "library_ms": k5["library_ms"], "dtype": "bf16",
+        "per": "one pass over an 8192 x 8192 bf16 array (1 launch); plain and library are the same torch.mul",
+        "status": "built, launched by the probe, bit-identical to plain into fresh NaN-filled buffers",
+        "gbps": k5["kernel_gbps"], "library_gbps": k5["library_gbps"],
+        "probe": {"single": k5["probe"], "chain10": k5["probe_chain"]},
+    })
     return entries
 
 
 def main() -> int:
-    import logging
-
     import torch
 
     if not torch.cuda.is_available():
@@ -827,7 +1402,8 @@ def main() -> int:
     from xclip_tpu_torch.evals.lso import LSO_CLASS_TO_IDX
     from xclip_tpu_torch.evals.metadata import XCLIP_IMAGENET_CLASSES
     from xclip_tpu_torch.models import factory
-    from xclip_tpu_torch.ops import _build, flash_attention, fused_conv
+    from xclip_tpu_torch.ops import _build, flash_attention, fused_conv, stream_scale
+    from xclip_tpu_torch.tools import probe_bandwidth
     from xclip_tpu_torch import tokenizer as tokenizer_mod
     from xclip_tpu_torch.train import main as train_main
 
@@ -881,12 +1457,24 @@ def main() -> int:
         training["card_vs_cpu"] = phase_train_card_vs_cpu(torch, factory)
         phase_s["training"] = time.perf_counter() - t_start - sum(phase_s.values())
 
+        log("[phase 6] K5 stream_scale vs plain, and the bandwidth probe")
+        k5 = phase_stream_scale(torch, stream_scale, probe_bandwidth)
+        phase_s["probe"] = time.perf_counter() - t_start - sum(phase_s.values())
+
+        log(f"[phase 7] SAE path: RN50 feature cache, SAE {SAE_D} -> {SAE_M} at batch {SAE_BATCH}")
+        sae_counts, sae, store = phase_sae(torch, factory, fused_conv, flash_attention, rn50)
+        sae["steady_state"] = phase_sae_step_timing(torch, store)
+        log("[phase 7b] fp32 SAE step, card vs CPU")
+        sae["card_vs_cpu"] = phase_sae_card_vs_cpu(torch, store)
+        phase_s["sae"] = time.perf_counter() - t_start - sum(phase_s.values())
+
         kernels = summarize(report, errs, counts, tcounts, stats_records, stats_errs, bwd_records, bwd_errs,
-                            rn50.text.layers)
+                            rn50.text.layers, sae_counts, k5)
         detail = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                   "cuda": torch.version.cuda, "build_s": build_s, "kernels": kernels, "report": report,
                   "matmul_stats": stats_records, "backward": bwd_records, "main_path": rates,
                   "launches": counts, "card_vs_cpu": cross, "training": training, "train_launches": tcounts,
+                  "stream_scale": k5, "sae": sae, "sae_launches": sae_counts,
                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
         with open(REPORT, "w") as fh:
             json.dump(detail, fh, indent=1)

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from xclip_tpu_torch.ops import flash_attention, fused_conv
+from xclip_tpu_torch.ops import flash_attention, fused_conv, stream_scale
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
@@ -235,3 +235,76 @@ def test_tiny_train_step_card_matches_cpu(cuda, monkeypatch):
     assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
     for name, ref in g_cpu.items():
         torch.testing.assert_close(g_gpu[name], ref, atol=1e-3 * float(ref.abs().max()) + 1e-7, rtol=0)
+
+
+# --- K5 stream_scale and the SAE step ----------------------------------------
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def _check_stream_scale(x, scale=stream_scale.PROBE_SCALE):
+    """Kernel vs plain, bit for bit, into a fresh NaN-filled buffer."""
+    before = stream_scale.launches
+    got = stream_scale.stream_scale(x, scale, nan_fill_output=True)
+    ref = stream_scale.stream_scale_plain(x, scale)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.numel() == 0 or got.data_ptr() != x.data_ptr()
+    assert torch.equal(_bits(got), _bits(ref))
+    assert stream_scale.launches == before + (x.numel() > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(0,), (1,), (7,), (8,), (9,), (1000, 1003), (257, 4097), (8192, 8192)])
+@pytest.mark.parametrize("scale", [stream_scale.PROBE_SCALE, 1.5, -0.3])
+def test_stream_scale_kernel_matches_plain(cuda, shape, scale):
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, device="cuda", generator=gen) * 30).to(torch.bfloat16)
+    _check_stream_scale(x, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3, 7, 8])
+def test_stream_scale_misaligned_views(cuda, offset):
+    """Contiguous views that start 2, 6, 14 and 16 bytes into a buffer: the
+    first three take the scalar loop, all give the plain version's bits."""
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    base = torch.randn(offset + 1000 * 37, device="cuda", generator=gen).to(torch.bfloat16)
+    x = base[offset:].view(1000, 37)
+    assert x.is_contiguous()
+    _check_stream_scale(x, 1.5)
+
+
+@pytest.mark.gpu
+def test_stream_scale_writes_every_element_of_a_fresh_buffer(cuda):
+    """At the probe's scale the right output is the input itself: the output
+    is a new buffer, NaN before the launch, equal to x after it."""
+    x = torch.rand(8192, 8192, device="cuda").to(torch.bfloat16)
+    out = stream_scale.stream_scale(x, nan_fill_output=True)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != x.data_ptr() and not torch.isnan(out).any()
+    assert torch.equal(_bits(out), _bits(x))
+    with pytest.raises(TypeError):
+        stream_scale.stream_scale(x.float())
+
+
+@pytest.mark.gpu
+def test_sae_step_card_matches_cpu(cuda):
+    """One fp32 SAE step (components layout, d=64, m=256, batch 512) on the
+    card and on the CPU from the same parameters and batch: loss rtol 1e-5,
+    parameters within 1e-4 of each tensor's largest magnitude."""
+    from xclip_tpu_torch.sae import losses, model, optim, pipeline
+
+    params = model.sae_init(torch.Generator().manual_seed(0), model.SAECfg(64, 256, 1))
+    x = torch.from_numpy(np.random.RandomState(0).randn(512, 1, 64).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = model.tree_map(lambda t: t.to(device), params)
+        adam = optim.adam(1e-3)
+        new, metrics, fired = pipeline.train_step(p, adam, adam.init(p), losses.SAELossCfg(3e-4), x.to(device))
+        out[device] = (float(metrics["total_loss"]), model.sae_params_to_numpy(new), fired.cpu())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, b in zip(model.tree_leaves(out["cuda"][1]), model.tree_leaves(out["cpu"][1])):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    assert (out["cuda"][2] - out["cpu"][2]).abs().max() <= 2  # a pre-activation within rounding of 0

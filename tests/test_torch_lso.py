@@ -23,7 +23,7 @@ import jax
 import xclip_tpu.evals.run_lso as jax_run_lso
 import xclip_tpu.models.factory as jax_factory
 import xclip_tpu_torch.evals.run_lso as port_run_lso
-from test_torch_models import TINY, _randomize_bn
+from test_torch_models import TINY, _randomize_bn, release_memory_after_module  # noqa: F401
 from xclip_tpu.core.checkpoint import save_open_clip_checkpoint
 from xclip_tpu.data import datasets as jax_datasets
 from xclip_tpu.data.transforms import image_transform as jax_image_transform

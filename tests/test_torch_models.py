@@ -10,6 +10,9 @@ the tolerance (atol 1e-4) only covers summation order through a few
 layers.
 """
 
+import ctypes
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,21 @@ from xclip_tpu_torch.models import factory
 from xclip_tpu_torch.models.clip import CLIP, clip_cfg_from_dict
 from xclip_tpu_torch.models.resnet import Bottleneck
 from xclip_tpu_torch.tokenizer import SimpleTokenizer, get_tokenizer, tokenize
+
+@pytest.fixture(scope="module", autouse=True)
+def release_memory_after_module():
+    """After each port test module, hand JAX's compilation caches and the
+    freed heap back to the system: under xdist the JAX CLI tests that follow
+    these files in collection order need up to ~13 GB each, and a worker
+    keeps whatever its earlier files left resident (about 0.5 GB less per
+    module with this)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc only
+    if trim is not None:
+        trim(0)
+
 
 TINY = {
     "embed_dim": 32,

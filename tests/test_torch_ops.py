@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_models import release_memory_after_module  # noqa: F401
 from xclip_tpu.ops import fused_conv as jax_fused_conv
 from xclip_tpu.ops import flash_attention as jax_flash
 from xclip_tpu_torch.ops import _build, fused_conv, flash_attention
@@ -324,3 +325,111 @@ def test_matmul_stats_on_cuda_tensors_without_a_card_raises(monkeypatch, tmp_pat
             fused_conv.matmul_stats(z, w)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_conv.matmul_stats(torch.ones(8, 8, device="meta"), torch.ones(8, 8, device="meta"))
+
+
+# --- K5 stream_scale (the bandwidth probe's kernel) -------------------------
+
+from jax.experimental import pallas as pl  # noqa: E402
+
+from xclip_tpu_torch.ops import stream_scale  # noqa: E402
+from xclip_tpu_torch.tools import probe_bandwidth  # noqa: E402
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy()
+
+
+def _jax_bf16_bits(a) -> np.ndarray:
+    return np.asarray(a).view(np.int16)
+
+
+def test_stream_scale_plain_matches_jax_and_pallas_bit_for_bit():
+    """The plain version equals ``x * jnp.bfloat16(1.0001)`` and the probe's
+    Pallas kernel (the same call, interpret mode, (256, 256) in 128-row
+    blocks), bit for bit; bf16(1.0001) is 1.0, so all three equal x."""
+    n, block = 256, 128
+    x32 = np.random.RandomState(0).rand(n, n).astype(np.float32)
+    xj = jnp.asarray(x32).astype(jnp.bfloat16)
+
+    def kernel(x_ref, o_ref):
+        o_ref[...] = x_ref[...] * jnp.bfloat16(1.0001)
+
+    pallas_scale = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n, n), jnp.bfloat16),
+        grid=(n // block,),
+        in_specs=[pl.BlockSpec((block, n), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((block, n), lambda i: (i, 0)),
+        interpret=True,
+    )
+    x = torch.from_numpy(x32).to(torch.bfloat16)
+    got = stream_scale.stream_scale(x)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, n)
+    np.testing.assert_array_equal(_bf16_bits(got), _jax_bf16_bits(xj * jnp.bfloat16(1.0001)))
+    np.testing.assert_array_equal(_bf16_bits(got), _jax_bf16_bits(pallas_scale(xj)))
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(x))
+    assert float(jnp.bfloat16(1.0001)) == 1.0
+
+
+@pytest.mark.parametrize("scale", [0.3, 1.5, -2.7183])
+def test_stream_scale_plain_rounds_as_jax(scale):
+    """Scales that do round: fp32 product, round to nearest even, as JAX's
+    bf16 multiply on the CPU."""
+    x32 = (np.random.RandomState(1).randn(1000, 3) * 50).astype(np.float32)
+    got = stream_scale.stream_scale_plain(torch.from_numpy(x32).to(torch.bfloat16), scale)
+    want = jnp.asarray(x32).astype(jnp.bfloat16) * jnp.bfloat16(scale)
+    np.testing.assert_array_equal(_bf16_bits(got), _jax_bf16_bits(want))
+    ref = (torch.from_numpy(x32).to(torch.bfloat16).double() * float(jnp.bfloat16(scale))).to(torch.bfloat16)
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(ref))
+
+
+def test_stream_scale_validates_and_never_falls_back(monkeypatch, tmp_path):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with pytest.raises(TypeError, match="bfloat16"):
+        stream_scale.stream_scale(torch.ones(4, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_scale.stream_scale(torch.ones(4, 4, dtype=torch.bfloat16).t())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        stream_scale.stream_scale(torch.ones(4, 4, dtype=torch.bfloat16, device="meta"))
+    before = stream_scale.launches
+    stream_scale.stream_scale(torch.ones(4, 4, dtype=torch.bfloat16))
+    assert stream_scale.launches == before  # the CPU path launches nothing
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(stream_scale, "stream_scale_plain", no_plain)
+    monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with FakeTensorMode():
+        x = torch.empty(64, 8, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            stream_scale.stream_scale(x, nan_fill_output=True)
+    assert "stream_scale.cu" in {p.name for p in _build._sources()}
+
+
+@pytest.mark.parametrize("chain", [0, 3])
+def test_probe_bandwidth_runs_on_the_cpu(chain, capsys, monkeypatch):
+    """The probe's entry point at a small side on the CPU: the plain
+    version on both sides, the JAX probe's three result lines."""
+    monkeypatch.setattr(probe_bandwidth, "SIDE", 64)
+    argv = ["--device", "cpu"] + (["--chain", str(chain)] if chain else [])
+    before = stream_scale.launches
+    res = probe_bandwidth.main(argv)
+    out = capsys.readouterr().out.splitlines()
+    prefix = f"chain={chain} " if chain else ""
+    assert out[0] == "device: cpu"
+    assert out[1].startswith(f"{prefix}torch_stream_gbps: ") and out[2].startswith(f"{prefix}kernel_stream_gbps: ")
+    assert out[3].startswith("ratio: ")
+    assert res["bytes_per_pass"] == 2 * 64 * 64 * 2 and res["chain"] == chain
+    assert res["torch_ms"] > 0 and res["kernel_ms"] > 0 and np.isfinite(res["ratio"])
+    assert stream_scale.launches == before
+    with pytest.raises(SystemExit):
+        probe_bandwidth.main(["--device", "cpu", "--chain", "-1"])
+
+
+def test_probe_bandwidth_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        probe_bandwidth.main([])

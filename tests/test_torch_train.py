@@ -30,7 +30,7 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from test_torch_models import _randomize_bn
+from test_torch_models import _randomize_bn, release_memory_after_module  # noqa: F401
 from xclip_tpu.data.loader import DataLoader as JaxDataLoader
 from xclip_tpu.data.transforms import image_transform as jax_image_transform
 from xclip_tpu.data.transforms import random_resized_crop as jax_random_resized_crop

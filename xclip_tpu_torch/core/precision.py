@@ -40,3 +40,12 @@ def get_policy(precision: Optional[str]) -> Policy:
         return _POLICIES[precision]
     except KeyError:
         raise ValueError(f"unknown precision {precision!r}; options: {sorted(_POLICIES)}") from None
+
+
+def disable_tf32() -> None:
+    """fp32 products and convolutions in full fp32 on the card: cuBLAS and
+    cuDNN off TF32 for the process (cuDNN's convolutions default to TF32).
+    Each entry point's ``main()`` calls it, as the JAX package's fp32 runs
+    are full fp32; library functions leave the process's setting alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

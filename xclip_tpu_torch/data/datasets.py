@@ -4,11 +4,14 @@ sets.
 Copies from ``xclip_tpu/data/datasets.py``:
 
 - ``ImageFolderIndex``, ``ImageNet``, ``DomainNetCaptions`` and
-  ``DOMAIN_TO_IDX`` (:26-100, :222-268), with what the LSO evaluation uses:
-  (image, label) samples, no class remapping or captions; batched by
-  ``torch.utils.data.DataLoader`` (``evals/features.py``);
+  ``DOMAIN_TO_IDX`` (:26-100, :222-268), without class remapping or
+  filtering; ``DomainNetCaptions(mode=...)`` returns the image with its
+  label, or alone (``mode="none"``, the SAE feature cache);
+  batched by ``torch.utils.data.DataLoader`` (``evals/features.py``) or
+  ``data/loader.py`` (``sae/cache.py``);
 - ``TsvDataset`` (``filepath\\ttitle``) and ``SyntheticDataset`` (:270-375),
-  (image, caption) samples for training, batched by ``data/loader.py``.
+  (image, caption) samples for training, or the image alone
+  (``return_caption=False``), batched by ``data/loader.py``.
 
 ``__getitem__`` returns numpy samples.
 """
@@ -63,13 +66,18 @@ class ImageNet(ImageFolderIndex):
 
 class DomainNetCaptions:
     """Per-domain DomainNet TSV index with domain exclusion. TSV rows:
-    path\tlabel\tcaption; samples are (path, label, caption)."""
+    path\tlabel\tcaption; ``samples`` holds (path, label, caption). An item
+    is (image, label) with ``mode="label"`` (the default), the image alone
+    with ``mode="none"``."""
 
     def __init__(self, domainnet_path: str, split: str, transform: Callable,
-                 exclude_domains: Sequence[str] = ()):
+                 exclude_domains: Sequence[str] = (), mode: str = "label"):
         domainnet_path = os.path.abspath(domainnet_path)
         if split not in ("train", "val"):
             raise ValueError(f"split must be 'train' or 'val', got {split!r}")
+        if mode not in ("none", "label"):
+            raise ValueError(f"mode must be 'none' or 'label', got {mode!r}")
+        self.return_label = mode == "label"
         split = "test" if split == "val" else split
         self.samples: List[Tuple[str, int, str]] = []
         for domain in ALL_DOMAINS:
@@ -88,27 +96,31 @@ class DomainNetCaptions:
 
     def __getitem__(self, index: int):
         path, label, _ = self.samples[index]
-        return self.transform(Image.open(path)), label
+        img = self.transform(Image.open(path))
+        return (img, label) if self.return_label else img
 
 
 class TsvDataset:
     """``filepath\ttitle`` TSV of (image path, caption) rows; samples are
-    (transformed image, caption)."""
+    (transformed image, caption), or the image alone with
+    ``return_caption=False``."""
 
-    def __init__(self, tsv_path: str, img_transform: Callable):
+    def __init__(self, tsv_path: str, img_transform: Callable, return_caption: bool = True):
         with open(tsv_path) as fh:
             lines = fh.readlines()
         if not lines or lines[0].strip("\n") != "filepath\ttitle":
             raise ValueError(f"{tsv_path}: the first line must be the header 'filepath\\ttitle'")
         self.samples = [line.strip("\n").split("\t") for line in lines[1:]]
         self.img_transform = img_transform
+        self.return_caption = return_caption
 
     def __len__(self) -> int:
         return len(self.samples)
 
     def __getitem__(self, index: int):
         path, caption = self.samples[index]
-        return self.img_transform(Image.open(path).convert("RGB")), caption
+        img = self.img_transform(Image.open(path).convert("RGB"))
+        return (img, caption) if self.return_caption else img
 
 
 class SyntheticDataset:

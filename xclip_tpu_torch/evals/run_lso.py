@@ -10,7 +10,8 @@ Counterpart of ``xclip_tpu/evals/run_lso.py`` (``evaluate_checkpoint`` and
 
 writes the same ``results.json`` and prediction ``.npy`` files as the JAX
 evaluator. The device defaults to CUDA and must be present unless
-``--device cpu`` is given.
+``--device cpu`` is given. fp32 products and convolutions run in full
+fp32 (no TF32).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from xclip_tpu_torch.core.device import resolve_device
-from xclip_tpu_torch.core.precision import get_policy
+from xclip_tpu_torch.core.precision import disable_tf32, get_policy
 from xclip_tpu_torch.data.datasets import DomainNetCaptions, ImageNet
 from xclip_tpu_torch.data.transforms import image_transform
 from xclip_tpu_torch.evals.features import extract_image_features
@@ -175,6 +176,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="eval encoder precision; fp16 computes and scores in IEEE half")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    disable_tf32()
     run_lso_evaluation(
         args.model, args.ckpt_files, args.out_path, args.imagenet_path, args.domainnet_path,
         args.domain, domain_invariant=args.domain_invariant, num_workers=args.num_workers,

@@ -114,6 +114,8 @@ def load_library() -> ctypes.CDLL:
             lib.xk_matmul_stats.restype = i
             lib.xk_flash_attention.argtypes = [i, p, p, p, p, i, i, i, ctypes.c_float, i, p]
             lib.xk_flash_attention.restype = i
+            lib.xk_stream_scale.argtypes = [p, p, ctypes.c_longlong, ctypes.c_float, p]
+            lib.xk_stream_scale.restype = i
             _lib = lib
     return _lib
 

@@ -14,7 +14,8 @@ checkpoints in open_clip's format (plus an atomic ``epoch_latest.pt`` with
 Batches are pinned in the loader's thread and copied to the card with
 ``non_blocking=True``. Losses are fetched from the device only at log
 boundaries. Not ported yet: per-epoch zero-shot evaluation, webdataset,
-device prefetch threads, several processes.
+device prefetch threads, several processes. fp32 products and
+convolutions run in full fp32 (no TF32).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from xclip_tpu_torch.core.checkpoint import load_training_checkpoint, save_checkpoint
 from xclip_tpu_torch.core.device import resolve_device
+from xclip_tpu_torch.core.precision import disable_tf32
 from xclip_tpu_torch.data.datasets import SyntheticDataset, TsvDataset
 from xclip_tpu_torch.data.loader import DataLoader, tokenizing_collate
 from xclip_tpu_torch.data.transforms import image_transform
@@ -162,6 +164,7 @@ def _setup_logging(log_file: str):
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    disable_tf32()
     if args.name is None:
         date_str = datetime.now().strftime("%Y_%m_%d-%H_%M_%S")
         args.name = "-".join([date_str, f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
