@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    plain version, one library call computing the same function (the
    yardstick, used nowhere in the port) and the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak rate): K1/K2 and
-   K4 at the RN50 LSO evaluation's shapes, K3 (``matmul_stats``) at the 16
+   K4 at the RN50 LSO evaluation's shapes (and K4 at the training
+   microbatch of 128), K3 (``matmul_stats``) at the 16
    conv1 shapes of RN50 training at batch 128; then hold the backward of
    each autograd Function (K1, K2, K3, K4) against autograd of its plain
    version at one shape per ResNet stage (and the text attention), in fp32
@@ -255,9 +256,10 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
     heads, seq, width = rn50.text.heads, rn50.text.context_length, rn50.text.width
     hd = width // heads
     n_prompts = N_TEMPLATES * (N_IMAGENET_CLASSES + N_DOMAINNET_CLASSES)
-    # full chunk and the two tail chunks of the two classifiers
-    batches = sorted({TEXT_CHUNK, (N_TEMPLATES * N_IMAGENET_CLASSES) % TEXT_CHUNK,
-                      (N_TEMPLATES * N_DOMAINNET_CLASSES) % TEXT_CHUNK} - {0}, reverse=True)
+    # full chunk, the two tail chunks of the two classifiers, and the
+    # training path's 128-caption microbatch
+    tails = {(N_TEMPLATES * N_IMAGENET_CLASSES) % TEXT_CHUNK, (N_TEMPLATES * N_DOMAINNET_CLASSES) % TEXT_CHUNK}
+    batches = sorted({TEXT_CHUNK, TRAIN_BATCH} | tails - {0}, reverse=True)
     for dname, dt in dtypes.items():
         esize = torch.finfo(dt).bits // 8
         for bsz in batches:
@@ -282,7 +284,8 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
                     f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
                     f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) max_abs_err={err:.3g}")
             else:
-                log(f"  K4 {dname} B={bsz} (tail chunk) max_abs_err={err:.3g}")
+                role = "tail chunk" if bsz in tails else "training microbatch"
+                log(f"  K4 {dname} B={bsz} ({role}) max_abs_err={err:.3g}")
             report["flash_attention"].append(rec)
             del q, k, v
             torch.cuda.empty_cache()

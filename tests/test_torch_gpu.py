@@ -43,9 +43,16 @@ def _maa(m, k, c, dt, seed):
     return [t.cuda() for t in (z.to(dt), w.to(dt), g, b, ident.to(dt))]
 
 
+# ragged against the kernels' tiles: M against 128-row blocks, C against
+# 64-channel blocks, K against the 16- and 32-deep slabs, and K = 1, 3, 17,
+# whose rows are not whole 16-byte vectors (the scalar load path)
+MKC = [(1000, 72, 200), (12250, 64, 40), (7, 36, 20), (129, 8, 8),
+       (131, 1, 65), (300, 3, 130), (257, 17, 63), (515, 130, 129)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("m,k,c", [(1000, 72, 200), (12250, 64, 40), (7, 36, 20), (129, 8, 8)])
+@pytest.mark.parametrize("m,k,c", MKC)
 def test_matmul_affine_act_kernel_matches_plain(cuda, dt, m, k, c):
     z, w, g, b, ident = _maa(m, k, c, dt, seed=m + k)
     before = fused_conv.launches
@@ -58,21 +65,42 @@ def test_matmul_affine_act_kernel_matches_plain(cuda, dt, m, k, c):
     assert fused_conv.launches == before + 4
 
 
-@pytest.mark.gpu
-def test_matmul_affine_act_unaligned_views(cuda):
-    """A contiguous view starting off a 16-byte boundary takes the scalar
-    load path and gives the same result."""
-    z, w, g, b, ident = _maa(257, 64, 48, torch.bfloat16, seed=3)
-    zbig = torch.empty(257 * 64 + 1, dtype=z.dtype, device="cuda")
-    zv = zbig[1:].view(257, 64)
-    zv.copy_(z)
-    got = fused_conv.matmul_affine_act(zv, w, g, b, ident)
-    torch.testing.assert_close(got, fused_conv.matmul_affine_act(z, w, g, b, ident), atol=0, rtol=0)
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("l", [1, 50, 77, 200])
+def test_matmul_affine_act_unaligned_views(cuda, dt):
+    """Contiguous views of z, w and identity starting off a 16-byte boundary
+    take the scalar load path instead of cp.async/vectors and give the same
+    bits, in K1/K2 and in K3 (K and C are whole vectors, so alignment is the
+    only difference)."""
+    z, w, g, b, ident = _maa(257, 64, 48, dt, seed=3)
+    zu, wu, iu = _unaligned(z), _unaligned(w), _unaligned(ident)
+    for identity, identity_u in ((None, None), (ident, iu)):
+        got = fused_conv.matmul_affine_act(zu, wu, g, b, identity_u)
+        torch.testing.assert_close(got, fused_conv.matmul_affine_act(z, w, g, b, identity), atol=0, rtol=0)
+        ref = fused_conv.matmul_affine_act_plain(z, w, g, b, identity)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+    for got, want in zip(fused_conv.matmul_stats(zu, wu), fused_conv.matmul_stats(z, w)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# every slab count and tail of the 16-row query slabs and 64-key stages:
+# one key, a slab +-1, a stage +-1, the text tower's 77 and its 80 padded
+# rows, two stages +1, ViT-B/16's 197 + 3 and ViT-L/14's 257 (three blocks)
+FLASH_LENGTHS = [1, 15, 16, 17, 50, 63, 64, 65, 77, 80, 129, 200, 257]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("l", FLASH_LENGTHS)
 def test_flash_attention_kernel_matches_plain(cuda, dt, l):
     gen = torch.Generator().manual_seed(l)
     q, k, v = (torch.randn(2, 3, l, 64, generator=gen).to(dt).cuda() for _ in range(3))
@@ -82,6 +110,19 @@ def test_flash_attention_kernel_matches_plain(cuda, dt, l):
         ref = flash_attention.flash_attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
     assert flash_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_unaligned_views(cuda, dt):
+    """q, k, v off a 16-byte boundary take scalar loads and stores: the
+    same bits as aligned inputs."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(3, 2, 77, 64, generator=gen).to(dt).cuda() for _ in range(3))
+    for causal in (False, True):
+        got = flash_attention.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=causal)
+        want = flash_attention.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.gpu
@@ -132,7 +173,7 @@ def test_tiny_model_card_matches_cpu(cuda, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("m,k,c", [(7, 36, 20), (129, 8, 8), (12250, 64, 40), (1000, 72, 200)])
+@pytest.mark.parametrize("m,k,c", MKC)
 def test_matmul_stats_kernel_matches_plain(cuda, dt, m, k, c):
     """K3 at ragged and unaligned M and C: y within one rounding of the IO
     type (TOL), the fp32 column sums within 1e-4 of their scale (the sums

@@ -8,6 +8,8 @@ fp32's: both sides compute in fp32 on the CPU and differ only in
 summation order.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -182,6 +184,18 @@ def test_build_hash_covers_sources():
     assert len(digest) == 64 and digest == _build.source_hash()
     names = {p.name for p in _build._sources()}
     assert {"fused_conv.cu", "flash_attention.cu"} <= names
+
+
+def test_build_hash_follows_shared_headers(monkeypatch, tmp_path):
+    """Editing a shared header (every kernel includes common.cuh or ptx.cuh)
+    changes the hash, so the library is rebuilt."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = _build.source_hash()
+    assert {"common.cuh", "ptx.cuh"} <= {p.name for p in csrc.glob("*.cuh")}
+    (csrc / "ptx.cuh").write_text((csrc / "ptx.cuh").read_text() + "// edited\n")
+    assert _build.source_hash() != before
 
 
 # --- K3 matmul_stats and the autograd Functions (training slice) -----------

@@ -17,9 +17,11 @@
 //
 // What bounds them on the H100: at the RN50 shapes (K <= 2048, C <= 2048,
 // M up to 784,000) the arithmetic intensity is below the card's ~295
-// FLOP/byte ridge for most layers, so the bound is the bytes of z, identity
-// and out/y. The Pallas kernels keep the whole (K, C) weight per program; at
-// layer 4 that is 2 MB in bf16, far above 227 KB of shared memory, so these
+// FLOP/byte ridge for most layers, so in bf16/fp16 the bound is the bytes
+// of z, identity and out/y; in fp32, off the tensor cores (67 TFLOP/s), it
+// is the FMAs, and the fp32 loop is built to keep the FMA pipes fed. The
+// Pallas kernels keep the whole (K, C) weight per program; at layer 4 that
+// is 2 MB in bf16, far above 227 KB of shared memory, so these
 // kernels tile the output in 2-D (128 x 64 tiles) and loop over K in slabs
 // staged in shared memory. The fp32 tile never goes to device memory: it is
 // staged in shared memory (reusing the slab buffer) and the epilogue writes
@@ -33,12 +35,13 @@
 // the partials of each column in a fixed order. No float atomics: the BN
 // statistics are the same from run to run.
 //
-// bf16/fp16 use the tensor cores through WMMA (16x16x16, fp32 accumulate);
-// fp32 uses register-tiled FMA (8x4 outputs per thread) so fp32 stays full
-// precision (no TF32). Simple and correct first: no cp.async pipeline, TMA
-// or wgmma yet.
+// bf16/fp16 use the tensor cores through WMMA (16x16x16, fp32 accumulate;
+// no cp.async pipeline, TMA or wgmma yet). fp32 stays full precision (no
+// TF32): a register-tiled FMA loop, 8 x 8 outputs per thread from float4
+// shared loads, fed by a two-stage cp.async pipeline (fma_tile).
 
 #include "common.cuh"  // cuda_bf16.h / cuda_fp16.h before mma.h
+#include "ptx.cuh"
 
 #include <mma.h>
 
@@ -51,7 +54,7 @@ using namespace nvcuda;
 
 constexpr int BM = 128;  // output rows per block
 constexpr int BN = 64;   // output channels per block
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the WMMA loop's block; fp32 blocks have FMA_THREADS
 constexpr int LDC = BN + 4;  // fp32 staging of the tile
 // every main loop's slab buffers fit in the fp32 staging buffer they share
 constexpr int SMEM_BYTES = BM * LDC * sizeof(float);
@@ -137,66 +140,140 @@ __device__ __forceinline__ void wmma_tile(const T* __restrict__ z, const T* __re
   __syncthreads();
 }
 
-// fp32: register-tiled FMA. 16 x 16 threads; thread (tx, ty) owns rows
-// ty + 16 i (i < 8) and channels tx + 16 j (j < 4) of the 128 x 64 tile.
-__device__ __forceinline__ void fma_tile(const float* __restrict__ z, const float* __restrict__ w,
-                                         int64_t M, int K, int C, int64_t m0, int n0, bool vec_b,
+// fp32: register-tiled FMA on FMA_THREADS = 128 threads as 16 (rows) x 8
+// (channels). Thread (tx, ty) owns rows ty + 16 i (i < 8) and channels
+// 4 tx + j and 32 + 4 tx + j (j < 4) of the 128 x 64 tile: an 8 x 8
+// micro-tile. Per 4 k steps it reads 8 float4 of A (one per row, along k)
+// and 8 float4 of B for 256 FMAs. Within a warp the A rows are 4
+// consecutive rows (LDA32 = 20 puts them in distinct banks) shared by 8
+// lanes, and the B reads are 128 contiguous bytes shared by 4 lanes: no bank
+// conflicts. The A slab is kept untransposed so that both slabs arrive by
+// 16-byte cp.async, two stages deep: slab s + 1 loads while slab s is used.
+// Each output sums its k terms in order with fmaf: full fp32, no TF32.
+// With 8 x 8 outputs a thread the SM's shared-memory pipe (128 bytes a
+// clock) is about as busy as its 128 FMA lanes; a wider micro-tile loads
+// less per FMA but runs out of registers (8 x 16 on 64 threads needs all
+// 255 and is slower).
+constexpr int FMA_THREADS = 128;
+constexpr int FBK = 16;                 // k per slab
+constexpr int LDA32 = FBK + 4;          // As[m][k]
+constexpr int LDB32 = BN + 4;           // Bs[k][n]
+constexpr int FSTAGE_FLOATS = BM * LDA32 + FBK * LDB32;
+static_assert(2 * FSTAGE_FLOATS * sizeof(float) <= SMEM_BYTES, "slabs exceed the staging buffer");
+
+// slab k0 of z (BM x FBK) and w (FBK x BN) into one stage, zero outside the
+// matrices; 16-byte cp.async where rows allow (vec_a: K % 4 == 0 and z
+// aligned; vec_b: C % 4 == 0 and w aligned), else plain loads and stores
+__device__ __forceinline__ void fma_load_slab(float* As, float* Bs, const float* __restrict__ z,
+                                              const float* __restrict__ w, int64_t M, int K, int C, int64_t m0,
+                                              int n0, int k0, bool vec_a, bool vec_b) {
+  for (int v = threadIdx.x; v < BM * (FBK / 4); v += FMA_THREADS) {
+    const int r = v / (FBK / 4);
+    const int c = (v % (FBK / 4)) * 4;
+    const int64_t gr = m0 + r;
+    const int gc = k0 + c;
+    float* dst = As + r * LDA32 + c;
+    if (vec_a) {
+      const bool ok = gr < M && gc < K;
+      cp_async16(dst, ok ? z + gr * K + gc : z, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = (gr < M && gc + e < K) ? z[gr * K + gc + e] : 0.f;
+    }
+  }
+  for (int v = threadIdx.x; v < FBK * (BN / 4); v += FMA_THREADS) {
+    const int r = v / (BN / 4);
+    const int c = (v % (BN / 4)) * 4;
+    const int gr = k0 + r;
+    const int gc = n0 + c;
+    float* dst = Bs + r * LDB32 + c;
+    if (vec_b) {
+      const bool ok = gr < K && gc < C;
+      cp_async16(dst, ok ? w + static_cast<int64_t>(gr) * C + gc : w, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[e] = (gr < K && gc + e < C) ? w[static_cast<int64_t>(gr) * C + gc + e] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma_tile(const float* __restrict__ z, const float* __restrict__ w, int64_t M,
+                                         int K, int C, int64_t m0, int n0, bool vec_a, bool vec_b,
                                          unsigned char* smem) {
-  constexpr int BK = 16;
-  constexpr int LDAT = BM + 4;  // A slab stored transposed: As[k][m]
-  constexpr int LDB = BN + 4;
-  constexpr int A_BYTES = BK * LDAT * sizeof(float);
-  static_assert(A_BYTES + BK * LDB * sizeof(float) <= SMEM_BYTES, "slabs exceed the staging buffer");
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
+  float* stages = reinterpret_cast<float*>(smem);
+  float* Cs = stages;  // reused after the K loop
+  const int tx = threadIdx.x % 8;
+  const int ty = threadIdx.x / 8;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[8][4];
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int v = threadIdx.x; v < BM * BK; v += THREADS) {
-      const int r = v / BK;
-      const int c = v % BK;
-      const int64_t gr = m0 + r;
-      const int gc = k0 + c;
-      As[c * LDAT + r] = (gr < M && gc < K) ? z[gr * K + gc] : 0.f;
+  const int slabs = (K + FBK - 1) / FBK;
+  fma_load_slab(stages, stages + BM * LDA32, z, w, M, K, C, m0, n0, 0, vec_a, vec_b);
+  cp_async_commit();
+  for (int s = 0; s < slabs; ++s) {
+    if (s + 1 < slabs) {
+      float* nxt = stages + ((s + 1) & 1) * FSTAGE_FLOATS;
+      fma_load_slab(nxt, nxt + BM * LDA32, z, w, M, K, C, m0, n0, (s + 1) * FBK, vec_a, vec_b);
     }
-    load_tile<float, BK, BN, LDB>(Bs, w, k0, n0, K, C, vec_b);
+    cp_async_commit();
+    cp_async_wait<1>();  // slab s has landed
     __syncthreads();
+    const float* As = stages + (s & 1) * FSTAGE_FLOATS;
+    const float* Bs = As + BM * LDA32;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[8], bv[4];
+    for (int kk = 0; kk < FBK; kk += 4) {
+      float4 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[k * LDAT + ty + 16 * i];
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * LDA32 + kk);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k * LDB + tx + 16 * j];
+      for (int kq = 0; kq < 4; ++kq) {
+        const float4 b0 = *reinterpret_cast<const float4*>(Bs + (kk + kq) * LDB32 + 4 * tx);
+        const float4 b1 = *reinterpret_cast<const float4*>(Bs + (kk + kq) * LDB32 + 32 + 4 * tx);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const float av = lane_of(a[i], kq);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the stage is consumed before slab s + 2 overwrites it
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
+  for (int i = 0; i < 8; ++i) {
+    float* row = Cs + (ty + 16 * i) * LDC;
+    *reinterpret_cast<float4*>(row + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 32 + 4 * tx) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
   __syncthreads();
 }
+
+// threads per block: 256 for the WMMA main loop, 128 for the fp32 one
+template <typename T>
+struct Threads {
+  static constexpr int value = THREADS;
+};
+template <>
+struct Threads<float> {
+  static constexpr int value = FMA_THREADS;
+};
 
 template <typename T>
 __device__ __forceinline__ void product_tile(const T* __restrict__ z, const T* __restrict__ w, int64_t M,
                                              int K, int C, int64_t m0, int n0, bool vec_a, bool vec_b,
                                              unsigned char* smem) {
   if constexpr (std::is_same<T, float>::value) {
-    fma_tile(z, w, M, K, C, m0, n0, vec_b, smem);
+    fma_tile(z, w, M, K, C, m0, n0, vec_a, vec_b, smem);
   } else {
     wmma_tile<T>(z, w, M, K, C, m0, n0, vec_a, vec_b, smem);
   }
@@ -212,7 +289,7 @@ __device__ __forceinline__ void affine_epilogue(const float* Cs, const float* __
                                                 bool relu, bool vec_c) {
   constexpr int EV = 16 / sizeof(T);
   constexpr int GPR = BN / EV;
-  for (int v = threadIdx.x; v < BM * GPR; v += THREADS) {
+  for (int v = threadIdx.x; v < BM * GPR; v += Threads<T>::value) {
     const int r = v / GPR;
     const int c = (v % GPR) * EV;
     const int64_t gr = m0 + r;
@@ -249,7 +326,7 @@ __device__ __forceinline__ void affine_epilogue(const float* Cs, const float* __
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Threads<T>::value)
 maa_kernel(const T* __restrict__ z, const T* __restrict__ w, const float* __restrict__ g,
            const float* __restrict__ b, const T* __restrict__ identity, T* __restrict__ out, int64_t M,
            int K, int C, bool relu, bool vec_a, bool vec_b, bool vec_c) {
@@ -264,13 +341,12 @@ maa_kernel(const T* __restrict__ z, const T* __restrict__ w, const float* __rest
 // K3: y tile stored once in T; per-column sums of the fp32 tile over its
 // valid rows into partial[0][tile][c] and partial[1][tile][c].
 
-constexpr int PARTS = THREADS / BN;  // row groups summed per column
-constexpr int ROWS_PER_PART = BM / PARTS;
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Threads<T>::value)
 ms_kernel(const T* __restrict__ z, const T* __restrict__ w, T* __restrict__ y, float* __restrict__ partial,
           int64_t M, int K, int C, bool vec_a, bool vec_b, bool vec_c) {
+  constexpr int PARTS = Threads<T>::value / BN;  // row groups summed per column
+  constexpr int ROWS_PER_PART = BM / PARTS;
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   __shared__ float red[2][PARTS][BN];
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
@@ -280,7 +356,7 @@ ms_kernel(const T* __restrict__ z, const T* __restrict__ w, T* __restrict__ y, f
 
   constexpr int EV = 16 / sizeof(T);
   constexpr int GPR = BN / EV;
-  for (int v = threadIdx.x; v < BM * GPR; v += THREADS) {
+  for (int v = threadIdx.x; v < BM * GPR; v += Threads<T>::value) {
     const int r = v / GPR;
     const int c = (v % GPR) * EV;
     const int64_t gr = m0 + r;
@@ -381,7 +457,7 @@ template <typename T>
 void launch_maa(const void* z, const void* w, const float* g, const float* b, const void* identity,
                 void* out, int64_t M, int K, int C, bool relu, cudaStream_t stream) {
   const VecFlags v = vec_flags<T>(z, w, K, C, out, identity);
-  maa_kernel<T><<<tile_grid(M, C), THREADS, 0, stream>>>(
+  maa_kernel<T><<<tile_grid(M, C), Threads<T>::value, 0, stream>>>(
       static_cast<const T*>(z), static_cast<const T*>(w), g, b, static_cast<const T*>(identity),
       static_cast<T*>(out), M, K, C, relu, v.a, v.b, v.c);
 }
@@ -391,8 +467,8 @@ cudaError_t launch_ms(const void* z, const void* w, void* y, float* s1, float* s
                       int64_t M, int K, int C, cudaStream_t stream) {
   const VecFlags v = vec_flags<T>(z, w, K, C, y, nullptr);
   const dim3 grid = tile_grid(M, C);
-  ms_kernel<T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(z), static_cast<const T*>(w),
-                                             static_cast<T*>(y), partial, M, K, C, v.a, v.b, v.c);
+  ms_kernel<T><<<grid, Threads<T>::value, 0, stream>>>(static_cast<const T*>(z), static_cast<const T*>(w),
+                                                        static_cast<T*>(y), partial, M, K, C, v.a, v.b, v.c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   column_sum_kernel<<<(C + SUM_COLS - 1) / SUM_COLS, dim3(SUM_COLS, SUM_ROWS), 0, stream>>>(

@@ -5,8 +5,9 @@ via ``flash_attention`` and ``flash_mha``): online softmax with fp32 running
 max, sum and accumulator, optional causal mask, IO in q's dtype.
 
 - :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-  tensors (head dim 64) and uses the plain version for CPU
-  tensors; nothing else.
+  tensors (head dim 64, any length; both products on the tensor cores,
+  fp32 as three tf32 products that keep fp32 accuracy) and uses the plain
+  version for CPU tensors; nothing else.
 - :func:`flash_attention_plain` is the same function in plain PyTorch, fp32
   inside, used by the CPU path and as the kernel's reference.
 - :class:`FlashAttention` is its autograd Function: the kernel forward and a
