@@ -14,7 +14,9 @@ Phases, each fatal on failure:
    take (bytes over 3.35 TB/s or operations over the peak rate): K1/K2 and
    K4 at the RN50 LSO evaluation's shapes (and K4 at the training
    microbatch of 128), K3 (``matmul_stats``) at the 16
-   conv1 shapes of RN50 training at batch 128; then hold the backward of
+   conv1 shapes of RN50 training at batch 128; log each shape's share of
+   its bound and list, before the last line, the shapes at which a kernel
+   is slower than its library call; then hold the backward of
    each autograd Function (K1, K2, K3, K4) against autograd of its plain
    version at one shape per ResNet stage (and the text attention), in fp32
    and bf16, and time both backwards;
@@ -103,6 +105,9 @@ TRAIN_CAPTIONS = ["a photo of a cat.", "a sketch of a barn.", "a painting of a l
 # K3's fp32 column sums vs the plain version's: same fp32 values, another
 # summation order, so within 1e-4 of the vector's largest element
 STATS_TOL = 1e-4
+# K1/K2/K3 shapes with K at or above this are summed apart ("deep_k"): the
+# late layers, where the tensor cores and not the bytes set the pace
+DEEP_K = 512
 # backward of a Function vs autograd of its plain version, per gradient
 # tensor as ||got - ref|| / ||ref||: fp32 differs by summation order; in
 # bf16 the Function's products round their inputs and outputs to bf16 as
@@ -163,6 +168,27 @@ def bound(rec: dict, flops: float, nbytes: float, dtype: str) -> None:
     rec["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
     rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
     rec["bound_by"] = "operations" if rec["ops_ms"] > rec["bytes_ms"] else "bytes"
+
+
+def share(rec: dict) -> None:
+    """The kernel's share of its bound (bound_ms / kernel_ms: 1 is the card's
+    limit) and whether one library call computes the same function faster."""
+    rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+    rec["slower_than_library"] = rec["kernel_ms"] > rec["library_ms"]
+
+
+def shape_name(rec: dict) -> str:
+    if "M" in rec:
+        return f"{rec['kernel']} {rec['dtype']} M={rec['M']} K={rec['K']} C={rec['C']}"
+    if "B" in rec:
+        return f"{rec['kernel']} {rec['dtype']} B={rec['B']} H={rec['H']} L={rec['L']} D={rec['D']}"
+    return f"{rec['kernel']} {rec['dtype']} {'x'.join(map(str, rec['shape']))}"
+
+
+def slower_list(recs) -> list:
+    """The timed shapes at which the kernel is slower than its library call."""
+    return [f"{shape_name(r)}: {r['kernel_ms']:.4f} > {r['library_ms']:.4f} ms"
+            for r in recs if r.get("slower_than_library")]
 
 
 def close(got, ref, tol: float):
@@ -245,11 +271,12 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
             }
             nbytes = (m * k + k * c + m * c * (2 if ident else 1)) * esize + 2 * c * 4
             bound(rec, 2.0 * m * k * c, nbytes, dname)
+            share(rec)
             report["fused_conv"].append(rec)
             log(f"  {kid} {dname} M={m} K={k} C={c} id={int(ident)} relu={int(relu)} x{len(roles)}: "
                 f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                 f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-                f"({rec['bound_by']}) max_abs_err={err:.3g}")
+                f"({rec['bound_by']}) share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g}")
             del z, w, g, b, idn
             torch.cuda.empty_cache()
 
@@ -280,9 +307,11 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
                 rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
                 pairs = seq * (seq + 1) // 2  # causal (query, key) pairs this mask keeps
                 bound(rec, 4.0 * bsz * heads * pairs * hd, 4 * bsz * heads * seq * hd * esize, dname)
+                share(rec)
                 log(f"  K4 {dname} B={bsz} H={heads} L={seq} D={hd} causal: kernel_ms={rec['kernel_ms']:.4f} "
                     f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-                    f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) max_abs_err={err:.3g}")
+                    f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                    f"share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g}")
             else:
                 role = "tail chunk" if bsz in tails else "training microbatch"
                 log(f"  K4 {dname} B={bsz} ({role}) max_abs_err={err:.3g}")
@@ -350,11 +379,12 @@ def phase_stats_kernel(torch, fused_conv, rn50, dtypes):
                    "plain_ms": time_ms(lambda: fused_conv.matmul_stats_plain(z, w)),
                    "library_ms": time_ms(lambda: library_ms(z, w))}
             bound(rec, 2.0 * m * k * c, (m * k + k * c + m * c) * esize + 2 * c * 4, dname)
+            share(rec)
             records.append(rec)
             log(f"  K3 {dname} M={m} K={k} C={c} x{count}: kernel_ms={rec['kernel_ms']:.4f} "
                 f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-                f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) max_abs_err={err:.3g} "
-                f"sums_rel_err={err_s:.3g}")
+                f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                f"share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g} sums_rel_err={err_s:.3g}")
             del z, w
             torch.cuda.empty_cache()
     return records, errs
@@ -817,6 +847,7 @@ def phase_stream_scale(torch, stream_scale, probe_bandwidth):
            "library_ms": time_ms(lambda: torch.mul(x, s), 200, 200)}
     nbytes = 2 * x.numel() * x.element_size()  # read x once, write the output once
     bound(rec, float(x.numel()), nbytes, "fp32")  # one fp32 multiply per element
+    share(rec)
     rec["kernel_gbps"] = nbytes / rec["kernel_ms"] / 1e6
     rec["library_gbps"] = nbytes / rec["library_ms"] / 1e6
     log(f"  K5 bf16 {side}x{side}: kernel_ms={rec['kernel_ms']:.4f} ({rec['kernel_gbps']:.1f} GB/s) "
@@ -1345,12 +1376,17 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                 recs = [r for r in report["fused_conv"] if r["kernel"] == kid and r["dtype"] == dname]
             tot = {key: sum(r[key] * r["count_per_batch"] for r in recs)
                    for key in ("kernel_ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")}
+            bound_ms = max(tot["ops_ms"], tot["bytes_ms"])
             by_dtype[dname] = {
                 "ms": tot["kernel_ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
-                "bound_ms": max(tot["ops_ms"], tot["bytes_ms"]),
-                "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+                "bound_ms": bound_ms, "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+                "share_of_bound": bound_ms / tot["kernel_ms"], "slower_than_library": slower_list(recs),
                 "max_abs_err": kid_errs[dname], "launches_per": sum(r["count_per_batch"] for r in recs),
             }
+            if kid != "K4":  # the late layers' products, K >= 512, where the tensor cores set the pace
+                deep = [r for r in recs if r["K"] >= DEEP_K]
+                by_dtype[dname]["deep_k"] = {
+                    key: sum(r[key] * r["count_per_batch"] for r in deep) for key in ("kernel_ms", "library_ms")}
         bf16 = by_dtype["bf16"]
         per = {"K4": f"one {TEXT_CHUNK}-prompt text chunk", "K3": f"one {TRAIN_BATCH}-image RN50 training forward"
                }.get(kid, f"one {BATCH}-image RN50 eval batch")
@@ -1372,6 +1408,8 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
             "launches_by_path": by_path,
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+            "share_of_bound": bf16["share_of_bound"],
+            "slower_than_library": [s for d in by_dtype.values() for s in d["slower_than_library"]],
             "dtype": "bf16", "per": f"{per} ({bf16['launches_per']} launches)",
             "status": ("forward: built, launched by the main paths, agrees with plain in fp32/bf16/fp16; "
                        "backward: agrees with autograd of plain in fp32/bf16, ran in training"),
@@ -1383,6 +1421,7 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         "launches": k5["launches"], "launches_by_path": {"probe_bandwidth": k5["launches"]},
         "max_abs_err": k5["max_abs_err"], "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "library_ms": k5["library_ms"], "dtype": "bf16",
+        "share_of_bound": k5["share_of_bound"], "slower_than_library": slower_list([k5]),
         "per": "one pass over an 8192 x 8192 bf16 array (1 launch); plain and library are the same torch.mul",
         "status": "built, launched by the probe, bit-identical to plain into fresh NaN-filled buffers",
         "gbps": k5["kernel_gbps"], "library_gbps": k5["library_gbps"],
@@ -1483,6 +1522,14 @@ def main() -> int:
             json.dump(detail, fh, indent=1)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
+    for entry in kernels:
+        kid = entry["name"].split("(")[1].split(":")[0]
+        deep = {d: v["deep_k"] for d, v in entry.get("by_dtype", {}).items() if "deep_k" in v}
+        log(f"{kid}: share of bound {entry['share_of_bound']:.3f} (bf16, {entry['per']})"
+            + "".join(f"; {d} K>={DEEP_K} {v['kernel_ms']:.4f} vs library {v['library_ms']:.4f} ms"
+                      for d, v in deep.items()))
+    slower = [s for entry in kernels for s in entry["slower_than_library"]]
+    log(f"slower than the library call ({len(slower)} shapes): " + ("; ".join(slower) or "none"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

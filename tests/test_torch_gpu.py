@@ -44,10 +44,18 @@ def _maa(m, k, c, dt, seed):
 
 
 # ragged against the kernels' tiles: M against 128-row blocks, C against
-# 64-channel blocks, K against the 16- and 32-deep slabs, and K = 1, 3, 17,
-# whose rows are not whole 16-byte vectors (the scalar load path)
+# 64- and 128-channel blocks, K against the 16- and 64-deep slabs, and K = 1,
+# 3, 17, whose rows are not whole 16-byte vectors (the scalar load path).
+# The 16-bit ring of 3 slabs: K = 64 is one slab (shorter than the ring),
+# 2048 is 32 slabs and wraps it 10 times, 72 and 328 end in a ragged slab
+# on the vector path; M one below and one above 10 tiles, and the eval's
+# M = 12,250; C = 64, 192 and 200 (ragged 128-channel tiles) and 2048. The
+# 16-bit tiles are 128 channels wide for K > 256 and C > 128 (1281 x 2048
+# x 192, 1279 x 328 x 200, and 257 x 300 x 130 on the scalar path), else 64.
 MKC = [(1000, 72, 200), (12250, 64, 40), (7, 36, 20), (129, 8, 8),
-       (131, 1, 65), (300, 3, 130), (257, 17, 63), (515, 130, 129)]
+       (131, 1, 65), (300, 3, 130), (257, 17, 63), (515, 130, 129),
+       (1279, 64, 64), (1281, 2048, 192), (12250, 72, 2048), (1281, 64, 2048),
+       (1279, 328, 200), (257, 300, 130)]
 
 
 @pytest.mark.gpu
@@ -80,16 +88,17 @@ def test_matmul_affine_act_unaligned_views(cuda, dt):
     """Contiguous views of z, w and identity starting off a 16-byte boundary
     take the scalar load path instead of cp.async/vectors and give the same
     bits, in K1/K2 and in K3 (K and C are whole vectors, so alignment is the
-    only difference)."""
-    z, w, g, b, ident = _maa(257, 64, 48, dt, seed=3)
-    zu, wu, iu = _unaligned(z), _unaligned(w), _unaligned(ident)
-    for identity, identity_u in ((None, None), (ident, iu)):
-        got = fused_conv.matmul_affine_act(zu, wu, g, b, identity_u)
-        torch.testing.assert_close(got, fused_conv.matmul_affine_act(z, w, g, b, identity), atol=0, rtol=0)
-        ref = fused_conv.matmul_affine_act_plain(z, w, g, b, identity)
-        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
-    for got, want in zip(fused_conv.matmul_stats(zu, wu), fused_conv.matmul_stats(z, w)):
-        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    only difference), at both 16-bit tile widths (64 and 128 channels)."""
+    for m, k, c in ((257, 64, 48), (300, 320, 136)):
+        z, w, g, b, ident = _maa(m, k, c, dt, seed=3)
+        zu, wu, iu = _unaligned(z), _unaligned(w), _unaligned(ident)
+        for identity, identity_u in ((None, None), (ident, iu)):
+            got = fused_conv.matmul_affine_act(zu, wu, g, b, identity_u)
+            torch.testing.assert_close(got, fused_conv.matmul_affine_act(z, w, g, b, identity), atol=0, rtol=0)
+            ref = fused_conv.matmul_affine_act_plain(z, w, g, b, identity)
+            torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+        for got, want in zip(fused_conv.matmul_stats(zu, wu), fused_conv.matmul_stats(z, w)):
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 # every slab count and tail of the 16-row query slabs and 64-key stages:
@@ -189,6 +198,22 @@ def test_matmul_stats_kernel_matches_plain(cuda, dt, m, k, c):
         torch.testing.assert_close(got, ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
     y2, s1b, s2b = fused_conv.matmul_stats(z, w)
     assert torch.equal(y, y2) and torch.equal(s1, s1b) and torch.equal(s2, s2b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_matmul_stats_same_bits_across_launches(cuda, dt):
+    """K3 at a training shape of 196 row tiles x 2 column tiles: y and both
+    column sums keep their bits over launches, with another launch of a
+    different shape (other blocks, other partials) in between."""
+    z, w, _, _, _ = _maa(25088, 1024, 256, dt, seed=11)
+    first = fused_conv.matmul_stats(z, w)
+    other = fused_conv.matmul_stats(*_maa(6272, 2048, 512, dt, seed=12)[:2])
+    again = fused_conv.matmul_stats(z, w)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert all(torch.isfinite(t.float()).all() for t in (*first, *other))
 
 
 def _grad_check(fn, ref_fn, inputs, dt):

@@ -112,6 +112,8 @@ def load_library() -> ctypes.CDLL:
             lib.xk_matmul_affine_act.restype = i
             lib.xk_matmul_stats.argtypes = [i, p, p, p, p, p, p, ctypes.c_longlong, i, i, p]
             lib.xk_matmul_stats.restype = i
+            lib.xk_matmul_stats_tile_m.argtypes = []
+            lib.xk_matmul_stats_tile_m.restype = i
             lib.xk_flash_attention.argtypes = [i, p, p, p, p, i, i, i, ctypes.c_float, i, p]
             lib.xk_flash_attention.restype = i
             lib.xk_stream_scale.argtypes = [p, p, ctypes.c_longlong, ctypes.c_float, p]

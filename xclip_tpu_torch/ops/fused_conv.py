@@ -39,8 +39,6 @@ stats_launches = 0
 affine_act_backward_calls = 0
 stats_backward_calls = 0
 
-TILE_M = 128  # rows per block of csrc/fused_conv.cu (BM): one partial-sum row each
-
 
 def matmul_affine_act_plain(
     z: torch.Tensor,
@@ -150,7 +148,10 @@ def matmul_stats(z: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.
     c = w.shape[1]
     y = torch.empty((m, c), dtype=z.dtype, device=z.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=z.device)
-    partial = torch.empty((2, -(-m // TILE_M), c), dtype=torch.float32, device=z.device)
+    # one partial-sum row per output tile of the kernel, whose height the
+    # library reports: the kernel writes 2 * tiles * c floats
+    tiles = -(-m // lib.xk_matmul_stats_tile_m())
+    partial = torch.empty((2, tiles, c), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.xk_matmul_stats(
