@@ -39,11 +39,23 @@ Phases, each fatal on failure:
    profile one step (``torch.profiler``, top device ops);
    5b. one fp32 train step of a tiny RN config on the card against the
    same step on the CPU (loss and every gradient);
+   5c. run-to-run determinism, in a child process started with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (it calls
+   :func:`determinism_child`): two amp train steps of the tiny RN config
+   from one seed, twice as is and twice under
+   ``torch.use_deterministic_algorithms(True)``; losses, step-1 gradients
+   and parameters compared bit for bit within each pair (fails if either
+   pair differs);
 6. K5 and the bandwidth probe: hold ``stream_scale`` bit for bit against
-   its plain version at the probe's (8192, 8192) and at (1000, 1003), into
-   a fresh NaN-filled buffer; time it, ``torch.mul`` and the bytes bound;
-   then run ``xclip_tpu_torch.tools.probe_bandwidth.main`` once per launch
-   and with ``--chain 10`` (counts zeroed before, read after, exact);
+   its plain version, into fresh NaN-filled buffers, at the probe's (8192,
+   8192), at (1000, 1003), at lengths on the kernel's block and wave
+   boundaries, on views 1, 3, 7, 8 and 16 elements into a buffer and on
+   all 65,536 bf16 bit patterns; log its registers and shared memory; time
+   it, the plain version and ``torch.mul`` in turns (7 rounds of 200
+   launches; medians and the spread between rounds), the bytes bound and
+   the wrapper's host time per call; then run
+   ``xclip_tpu_torch.tools.probe_bandwidth.main`` once per launch and with
+   ``--chain 10`` (counts zeroed before, read after, exact);
 7. the SAE path at full width: a seeded synthetic DomainNet tree (six
    domains, 8,400 train and 600 test JPEGs), a seeded RN50 ``.pt`` with
    random BatchNorms (``randomize_bn``); K1/K2
@@ -79,6 +91,7 @@ import logging
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -118,6 +131,7 @@ DEEP_K = 512
 # cotangent element.
 BACKWARD_TOL = {"fp32": 1e-4, "bf16": 1e-2}
 TRAIN_CHECK_TOL = 1e-3  # phase 5b: card vs CPU, fp32, per gradient tensor
+K5_ROUNDS, K5_LAUNCHES = 7, 200  # phase 6: K5, plain and torch.mul timed in turns
 TEXT_CHUNK = 2048    # OpenAIZeroShotClassifier's prompt chunk
 N_TEMPLATES = 86
 N_IMAGENET_CLASSES, N_DOMAINNET_CLASSES = 1000, 345
@@ -161,6 +175,29 @@ def time_ms(fn, min_total_ms: float = 30.0, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rounds_ms(fns: dict, rounds: int, launches: int) -> dict:
+    """Per name, the mean device ms of one call in each round: every round
+    times ``launches`` calls of each function between CUDA events, in an
+    order rotated by one from round to round, after one warm-up call each."""
+    import torch
+
+    names = list(fns)
+    for name in names:
+        fns[name]()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            start.record()
+            for _ in range(launches):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            out[name].append(start.elapsed_time(end) / launches)
+    return out
+
+
 def bound(rec: dict, flops: float, nbytes: float, dtype: str) -> None:
     """Least time for the work: operations over the peak rate or bytes (each
     input read once, each output written once) over the memory rate."""
@@ -196,6 +233,21 @@ def close(got, ref, tol: float):
     diff = (got.float() - ref.float()).abs()
     ok = bool(torch_all_finite(got) and (diff <= tol + tol * ref.float().abs()).all())
     return ok, float(diff.max())
+
+
+def ptxas_usage(build_log: str, kernel: str) -> str:
+    """What ``nvcc -Xptxas -v`` reports after "Used" (registers, barriers,
+    static shared memory) for the first entry function whose name holds
+    ``kernel``."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "entry function" in line and kernel in line:
+            for nxt in lines[i + 1:]:
+                if "entry function" in nxt:
+                    break
+                if "Used" in nxt:
+                    return "Used " + nxt.split("Used", 1)[1].strip()
+    return "not in the build log"
 
 
 def torch_all_finite(t) -> bool:
@@ -785,23 +837,33 @@ def phase_train_step_timing(torch, factory, tokenizer_mod):
             "top": [{"kernel": k, "ms": ms, "count": c} for k, ms, c in rows[:15]]}
 
 
-def phase_train_card_vs_cpu(torch, factory):
-    """One fp32 train step (accum 2, grad checkpointing) of a seeded tiny RN
-    CLIP on the card and on the CPU: loss and every gradient."""
+TINY_RN = "TinyRN-chip-smoke"  # phases 5b and 5c: a seeded tiny RN CLIP, two microbatches of 8 images
+TINY_RN_CFG = {
+    "embed_dim": 64, "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1], "width": 16, "patch_size": None},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 128, "heads": 2, "layers": 2}}
+
+
+def tiny_batch(torch):
+    """Phases 5b and 5c's seeded batch: 16 images of 64 x 64 and their texts."""
     import numpy as np
 
-    from xclip_tpu_torch.train import optim, schedule
-    from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
-
-    factory._MODEL_CONFIGS["TinyRN-chip-smoke"] = {
-        "embed_dim": 64, "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1], "width": 16, "patch_size": None},
-        "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 128, "heads": 2, "layers": 2}}
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.randint(0, 256, (16, 64, 64, 3)).astype(np.uint8))
     texts = torch.from_numpy(rng.randint(1, 49407, (16, 77)).astype(np.int32))
+    return images, texts
+
+
+def phase_train_card_vs_cpu(torch, factory):
+    """One fp32 train step (accum 2, grad checkpointing) of a seeded tiny RN
+    CLIP on the card and on the CPU: loss and every gradient."""
+    from xclip_tpu_torch.train import optim, schedule
+    from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
+
+    factory._MODEL_CONFIGS[TINY_RN] = TINY_RN_CFG
+    images, texts = tiny_batch(torch)
     results = []
     for device in ("cpu", "cuda"):
-        model = factory.create_model("TinyRN-chip-smoke", device=device, seed=0).train()
+        model = factory.create_model(TINY_RN, device=device, seed=0).train()
         step = make_train_step(model, optim.adamw(model, lr=1e-4), schedule.const_lr(1e-4, 1),
                                TrainStepCfg(precision="fp32", accum_freq=2, grad_checkpointing=True))
         m = step(images.to(device), texts.to(device), 0)
@@ -819,40 +881,160 @@ def phase_train_card_vs_cpu(torch, factory):
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
 
 
+DETERMINISM_MODES = ("as_is", "deterministic")
+
+
+def determinism_child() -> dict:
+    """Phase 5c's child (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts).
+
+    Two amp train steps (accum 2, grad checkpointing) of the tiny RN config
+    from seed 0 on phase 5b's batch, run twice in each mode: as is and
+    under ``torch.use_deterministic_algorithms(True)`` (an op without a
+    deterministic implementation then raises, naming the op). Per pair:
+    the losses' bits, the gradients whose bits differ after the first step
+    and the parameters that differ after both."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from xclip_tpu_torch.core import precision
+    from xclip_tpu_torch.models import factory
+    from xclip_tpu_torch.train import optim, schedule
+    from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
+
+    precision.disable_tf32()  # as the training CLI's main() does
+    factory._MODEL_CONFIGS[TINY_RN] = TINY_RN_CFG
+    images, texts = (t.cuda() for t in tiny_batch(torch))
+
+    def bits(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    def two_steps():
+        model = factory.create_model(TINY_RN, device="cuda", seed=0).train()
+        step = make_train_step(model, optim.adamw(model, lr=1e-4), schedule.const_lr(1e-4, 1),
+                               TrainStepCfg(precision="amp", accum_freq=2, grad_checkpointing=True))
+        losses = [float(step(images, texts, 0)["loss"])]
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        losses.append(float(step(images, texts, 1)["loss"]))
+        torch.cuda.synchronize()
+        return losses, grads, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    out = {}
+    for mode in DETERMINISM_MODES:
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            (l1, g1, p1), (l2, g2, p2) = two_steps(), two_steps()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads = [n for n in g1 if not torch.equal(bits(g1[n]), bits(g2[n]))]
+        params = [n for n in p1 if not torch.equal(bits(p1[n]), bits(p2[n]))]
+        out[mode] = {"losses": [l1, l2], "same_losses": l1 == l2, "grads_differ_step1": grads, "grads": len(g1),
+                     "params_differ": len(params), "params": len(p1)}
+    return out
+
+
+def phase_determinism():
+    """Phase 5c: runs :func:`determinism_child` in a child process, logs
+    each pair, fails if the two runs of either mode differ."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.determinism_child()), flush=True)"
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"the determinism child exited {res.returncode}: {res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    for mode, m in out.items():
+        log(f"  tiny RN amp, {mode}: losses {m['losses'][0]} / {m['losses'][1]} "
+            f"({'same bits' if m['same_losses'] else 'DIFFER'}); gradients differing after step 1: "
+            f"{len(m['grads_differ_step1'])} of {m['grads']} {m['grads_differ_step1'][:8]}; parameters "
+            f"differing after step 2: {m['params_differ']} of {m['params']}")
+    bad = [mode for mode, m in out.items() if not m["same_losses"] or m["params_differ"]]
+    if bad:
+        fail(f"two runs of the amp train step from one seed differ: {bad}")
+    return out
+
+
 def phase_stream_scale(torch, stream_scale, probe_bandwidth):
     """K5 vs plain bit for bit (fresh NaN-filled output, another buffer than
-    x), its times at the probe's shape, then the probe's entry point in both
-    modes with exact launch counts."""
+    x) at the probe's shape, at lengths on the kernel's block and wave
+    boundaries, on views off and on 16-byte boundaries and on all 65,536 bf16
+    bit patterns; its times in turns with the plain version and torch.mul,
+    and the wrapper's host time per call; then the probe's entry point in
+    both modes with exact launch counts."""
+    from xclip_tpu_torch.ops import _build
+
+    geometry = stream_scale.geometry()
+    build_log = _build.BUILD_DIR / "build.log"
+    usage = ptxas_usage(build_log.read_text() if build_log.exists() else "", "stream_scale_vec")
+    log(f"  K5 ptxas (stream_scale_vec): {usage}; no dynamic shared memory; {geometry['threads']} threads "
+        f"x {geometry['vecs_per_thread']} loads of 16 bytes, {geometry['blocks_per_sm']} blocks per SM, "
+        f"{geometry['sms']} SMs")
     gen = torch.Generator(device="cuda").manual_seed(8)
     side = probe_bandwidth.SIDE
-    checked = []
-    for shape, scale in (((1000, 1003), 1.5), ((1000, 1003), stream_scale.PROBE_SCALE),
-                         ((side, side), stream_scale.PROBE_SCALE)):  # x stays at the probe's shape
-        x = (torch.rand(shape, device="cuda", generator=gen) * 4 - 2).to(torch.bfloat16)
+
+    def check(x, scale, what):
         got = stream_scale.stream_scale(x, scale, nan_fill_output=True)
         ref = stream_scale.stream_scale_plain(x, scale)
         torch.cuda.synchronize()
         if got.data_ptr() == x.data_ptr():
-            fail(f"stream_scale {shape} returned its input buffer")
+            fail(f"stream_scale {what} returned its input buffer")
         differ = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
         if differ:
-            fail(f"stream_scale {shape} scale {scale}: {differ} elements differ in bits from the plain version")
+            fail(f"stream_scale {what} scale {scale}: {differ} elements differ in bits from the plain version")
+
+    checked = []
+    for shape, scale in (((1000, 1003), 1.5), ((1000, 1003), stream_scale.PROBE_SCALE),
+                         ((side, side), stream_scale.PROBE_SCALE)):  # x stays at the probe's shape
+        x = (torch.rand(shape, device="cuda", generator=gen) * 4 - 2).to(torch.bfloat16)
+        check(x, scale, f"{shape[0]}x{shape[1]}")
         checked.append(f"{shape[0]}x{shape[1]} scale {scale}")
-        del got, ref
     log(f"  K5 bit-identical to torch.mul into fresh NaN-filled buffers: {', '.join(checked)}")
+    edges = stream_scale.edge_lengths(**geometry)
+    for case, n in edges.items():
+        check((torch.randn(n, device="cuda", generator=gen) * 30).to(torch.bfloat16), 1.5, f"{case} (n={n})")
+    wave = edges["wave_plus_8"]
+    for offset in (1, 3, 7, 8, 16):  # 8 and 16 elements: on 16-byte boundaries, the vector kernel
+        base = torch.randn(offset + wave, device="cuda", generator=gen).to(torch.bfloat16)
+        check(base[offset:], -0.3, f"view at +{offset} (n={wave})")
+    patterns = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).cuda()
+    tiled = patterns.repeat(-(-edges["wave_plus_7"] // patterns.numel()))[:edges["wave_plus_7"]]
+    for scale in (stream_scale.PROBE_SCALE, 1.5, -0.3, 2.0 ** -126, 3.0e38):
+        check(patterns, scale, "all bf16 bit patterns")
+        check(tiled, scale, "all bf16 bit patterns across a wave")
+    log(f"  K5 bit-identical also at {len(edges)} edge lengths ({', '.join(f'{c} n={n}' for c, n in edges.items())}), "
+        f"views at +1/3/7/8/16 elements, all 65,536 bf16 bit patterns (NaN, +-Inf, -0, subnormals) at 5 scales")
+    del base, patterns, tiled
+
     s = torch.tensor(stream_scale.PROBE_SCALE, dtype=torch.bfloat16)
-    rec = {"kernel": "K5", "dtype": "bf16", "shape": [side, side], "max_abs_err": 0.0,
-           "kernel_ms": time_ms(lambda: stream_scale.stream_scale(x), 200, 200),
-           "plain_ms": time_ms(lambda: stream_scale.stream_scale_plain(x), 200, 200),
-           "library_ms": time_ms(lambda: torch.mul(x, s), 200, 200)}
+    per_round = rounds_ms({"kernel": lambda: stream_scale.stream_scale(x),
+                           "plain": lambda: stream_scale.stream_scale_plain(x),
+                           "library": lambda: torch.mul(x, s)}, K5_ROUNDS, K5_LAUNCHES)
     nbytes = 2 * x.numel() * x.element_size()  # read x once, write the output once
+    timing = {name: {"median_ms": statistics.median(ms), "spread_ms": max(ms) - min(ms), "rounds_ms": ms}
+              for name, ms in per_round.items()}
+    rec = {"kernel": "K5", "dtype": "bf16", "shape": [side, side], "max_abs_err": 0.0,
+           "kernel_ms": timing["kernel"]["median_ms"], "plain_ms": timing["plain"]["median_ms"],
+           "library_ms": timing["library"]["median_ms"], "timing": timing, "edges": edges,
+           "ptxas": usage, "geometry": geometry}
     bound(rec, float(x.numel()), nbytes, "fp32")  # one fp32 multiply per element
     share(rec)
     rec["kernel_gbps"] = nbytes / rec["kernel_ms"] / 1e6
     rec["library_gbps"] = nbytes / rec["library_ms"] / 1e6
-    log(f"  K5 bf16 {side}x{side}: kernel_ms={rec['kernel_ms']:.4f} ({rec['kernel_gbps']:.1f} GB/s) "
-        f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} ({rec['library_gbps']:.1f} GB/s) "
-        f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})")
+    host = {}
+    for name, fn in (("kernel", lambda: stream_scale.stream_scale(x)), ("library", lambda: torch.mul(x, s))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host[name] = (time.perf_counter() - t0) * 1e3 / 100  # enqueue only: the card has not caught up
+        torch.cuda.synchronize()
+    rec["host_ms_per_call"] = host
+    log(f"  K5 bf16 {side}x{side}, {K5_ROUNDS} rounds x {K5_LAUNCHES} launches in turns: median "
+        f"kernel_ms={rec['kernel_ms']:.4f} (spread {timing['kernel']['spread_ms']:.4f}, {rec['kernel_gbps']:.1f} GB/s) "
+        f"plain_ms={rec['plain_ms']:.4f} (spread {timing['plain']['spread_ms']:.4f}) "
+        f"library_ms={rec['library_ms']:.4f} (spread {timing['library']['spread_ms']:.4f}, "
+        f"{rec['library_gbps']:.1f} GB/s) bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}, "
+        f"share {rec['share_of_bound']:.3f}); host per call: wrapper {host['kernel']:.4f} ms, "
+        f"torch.mul {host['library']:.4f} ms")
     del x
     torch.cuda.empty_cache()
 
@@ -1422,7 +1604,10 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         "max_abs_err": k5["max_abs_err"], "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "library_ms": k5["library_ms"], "dtype": "bf16",
         "share_of_bound": k5["share_of_bound"], "slower_than_library": slower_list([k5]),
-        "per": "one pass over an 8192 x 8192 bf16 array (1 launch); plain and library are the same torch.mul",
+        "per": (f"one pass over an 8192 x 8192 bf16 array (1 launch), median of {K5_ROUNDS} rounds of "
+                f"{K5_LAUNCHES} launches timed in turns with plain and library (the same torch.mul)"),
+        "spread_ms": {k: v["spread_ms"] for k, v in k5["timing"].items()},
+        "host_ms_per_call": k5["host_ms_per_call"], "ptxas": k5["ptxas"], "geometry": k5["geometry"],
         "status": "built, launched by the probe, bit-identical to plain into fresh NaN-filled buffers",
         "gbps": k5["kernel_gbps"], "library_gbps": k5["library_gbps"],
         "probe": {"single": k5["probe"], "chain10": k5["probe_chain"]},
@@ -1497,6 +1682,8 @@ def main() -> int:
         training["steady_state"] = phase_train_step_timing(torch, factory, tokenizer_mod)
         log("[phase 5b] fp32 train step, card vs CPU")
         training["card_vs_cpu"] = phase_train_card_vs_cpu(torch, factory)
+        log("[phase 5c] run-to-run determinism of the train step (child process, CUBLAS_WORKSPACE_CONFIG=:4096:8)")
+        training["determinism"] = phase_determinism()
         phase_s["training"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         log("[phase 6] K5 stream_scale vs plain, and the bandwidth probe")

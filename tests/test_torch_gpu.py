@@ -355,6 +355,65 @@ def test_stream_scale_writes_every_element_of_a_fresh_buffer(cuda):
         stream_scale.stream_scale(x.float())
 
 
+def _edge(case):
+    return stream_scale.edge_lengths(**stream_scale.geometry())[case]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", stream_scale.EDGE_CASES)
+def test_stream_scale_edges(cuda, case):
+    """Lengths on the kernel's block and wave boundaries (its geometry
+    asked of the kernel's library): a block's last threads with some of their
+    vectors past the end, tails of 1 to 7 elements, whole blocks."""
+    n = _edge(case)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    _check_stream_scale((torch.randn(n, device="cuda", generator=gen) * 30).to(torch.bfloat16), 1.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3, 7, 8, 16])
+def test_stream_scale_offset_views_across_a_wave(cuda, offset):
+    """Views 2, 6, 14, 16 and 32 bytes into a buffer, a wave plus 8 elements
+    long: offsets 8 and 16 stay on 16-byte boundaries and take the vector
+    kernel, the others the scalar loop."""
+    n = _edge("wave_plus_8")
+    gen = torch.Generator(device="cuda").manual_seed(offset)
+    base = torch.randn(offset + n, device="cuda", generator=gen).to(torch.bfloat16)
+    _check_stream_scale(base[offset:], -0.3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [stream_scale.PROBE_SCALE, 1.5, -0.3, 2.0 ** -126, 3.0e38])
+@pytest.mark.parametrize("across_a_wave", [False, True])
+def test_stream_scale_every_bf16_bit_pattern(cuda, scale, across_a_wave):
+    """All 65,536 bf16 bit patterns as input (NaNs, +-Inf, +-0, subnormals,
+    the largest finite values): products that overflow, underflow to
+    subnormals or flush to 0 round as torch.mul's do. Tiled across a wave
+    plus 7 elements, every block sees them."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).cuda()
+    if across_a_wave:
+        n = _edge("wave_plus_7")
+        x = x.repeat(-(-n // x.numel()))[:n]
+    _check_stream_scale(x, scale)
+
+
+@pytest.mark.gpu
+def test_stream_scale_back_to_back_launches_agree(cuda):
+    """Three launches on one stream into fresh buffers, each counted once,
+    give the same bits."""
+    n = _edge("two_waves_plus_13")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(n, device="cuda", generator=gen) * 30).to(torch.bfloat16)
+    before = stream_scale.launches
+    outs = [stream_scale.stream_scale(x, 1.5, nan_fill_output=True) for _ in range(3)]
+    ref = stream_scale.stream_scale_plain(x, 1.5)
+    torch.cuda.synchronize()
+    assert stream_scale.launches == before + 3
+    assert len({o.data_ptr() for o in outs}) == 3
+    for out in outs:
+        assert torch.equal(_bits(out), _bits(ref))
+
+
 @pytest.mark.gpu
 def test_sae_step_card_matches_cpu(cuda):
     """One fp32 SAE step (components layout, d=64, m=256, batch 512) on the

@@ -447,3 +447,19 @@ def test_probe_bandwidth_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         probe_bandwidth.main([])
+
+
+def test_stream_scale_edge_lengths():
+    """K5's edge cases sit on the kernel's row, block and wave boundaries,
+    with tails of 1 to 7 elements: at the shipped kernel's geometry on an
+    H100 (512 threads x 4 loads, 3 blocks per SM, 132 SMs) and at another."""
+    for threads, vecs, per_sm, sms in ((512, 4, 3, 132), (256, 2, 4, 7)):
+        row, block = threads * 8, threads * 8 * vecs
+        wave = sms * per_sm * block
+        lengths = stream_scale.edge_lengths(threads, vecs, per_sm, sms)
+        assert tuple(lengths) == stream_scale.EDGE_CASES
+        assert lengths == {"below_one_block": block - 8, "below_one_block_ragged": block - 3, "one_block": block,
+                           "one_block_plus_1": block + 1, "one_block_and_a_row_plus_3": block + row + 3,
+                           "wave_plus_1": wave + 1, "wave_plus_7": wave + 7, "wave_plus_8": wave + 8,
+                           "two_waves_plus_13": 2 * wave + 13}
+    assert stream_scale.edge_lengths(512, 4, 3, 132)["wave_plus_8"] == 6_488_072

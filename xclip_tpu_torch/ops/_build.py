@@ -118,6 +118,8 @@ def load_library() -> ctypes.CDLL:
             lib.xk_flash_attention.restype = i
             lib.xk_stream_scale.argtypes = [p, p, ctypes.c_longlong, ctypes.c_float, p]
             lib.xk_stream_scale.restype = i
+            lib.xk_stream_scale_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            lib.xk_stream_scale_geometry.restype = i
             _lib = lib
     return _lib
 

@@ -1,7 +1,8 @@
 // Inline-PTX helpers shared by the port's kernels (built for sm_90a):
 // cp.async copies into shared memory, ldmatrix, the mma.sync tensor-core
-// products with fp32 accumulators, and Hopper's warpgroup products (wgmma)
-// with their shared-memory descriptors and fences.
+// products with fp32 accumulators, Hopper's warpgroup products (wgmma)
+// with their shared-memory descriptors and fences, and streaming 16-byte
+// global loads and stores.
 //
 // Fragment layouts of mma.sync m16n8k16 (bf16/fp16) and m16n8k8 (tf32), per
 // lane with g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix fragments"):
@@ -253,6 +254,24 @@ __device__ __forceinline__ void wgmma_ss<__half, 128>(float (&d)[64], uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Streaming 16-byte global accesses for data touched once: a load through
+// the read-only path that allocates no L1 line, and a store marked
+// evict-first (.cs). Both are volatile, so a thread's loads stay ahead of
+// its stores in the order written.
+
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void store_stream(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 }  // namespace xk
