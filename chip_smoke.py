@@ -20,14 +20,27 @@ Phases, each fatal on failure:
    each autograd Function (K1, K2, K3, K4) against autograd of its plain
    version at one shape per ResNet stage (and the text attention), in fp32
    and bf16, and time both backwards;
+   3c. K4 non-causal at the ViT paths' shapes, in fp32, bf16 and fp16,
+   against its plain version, timed with the plain version,
+   ``F.scaled_dot_product_attention(is_causal=False)`` and its bound:
+   ViT-L-14's and ViT-H-14's (head dim 80) eval batches of 250 at L = 257,
+   ViT-B-16's training microbatch of 128 at L = 197 and at the 99 tokens
+   patch dropout 0.5 leaves, and 64 images of ViT-L-14-336 at L = 577;
 4. drive the evaluation path at full width: a seeded random RN50 saved as an
    open_clip ``.pt``, a seeded synthetic ImageNet/DomainNet tree at 224 px,
    and ``xclip_tpu_torch.evals.run_lso.main(... --precision bf16)`` (86
    templates x (1000 + 345) classes, image batches of 250); check
    results.json, and that every kernel of the path was launched by that run
    (the counts are zeroed just before it and read just after); time one
-   image batch and one text chunk; hold an 8-image fp32 batch (and a few
-   prompts) encoded on the card against the port on the CPU;
+   image batch and one text chunk; 4a. hold an 8-image fp32 batch (and a
+   few prompts) encoded on the card against the port on the CPU;
+   4b. the same evaluation for a seeded ViT-L-14 at full width (24 image
+   layers, 12 text layers, K4 only, exact counts), one image batch and one
+   text chunk timed and profiled, 4 images and 4 prompts in fp32 on the
+   card against the port on the CPU;
+   4c. a seeded ViT-H-14 image tower (32 layers, width 1280, head dim 80)
+   encodes 64 images through K4 in bf16 and fp32, against the same tower
+   with the plain attention; 32 launches each;
 5. drive the training path at full width: a seeded TSV of 1,024 random
    256-px JPEGs, ``xclip_tpu_torch.train.main.main`` for RN50 at batch 128,
    accum-freq 2, ``--precision amp``, ``--grad-checkpointing``, 2 epochs,
@@ -59,6 +72,12 @@ Phases, each fatal on failure:
    need (the 80,000-prompt head in 40 chunks through the 12 text layers);
    rank 0 wrote ``epoch_1.pt``; the head's build time and the eval wall
    are logged beside the card;
+   5e. ``train.main`` for ViT-B-16 at batch 128 x accum-freq 2, amp, grad
+   checkpointing, ``--force-patch-dropout 0.5``, one epoch (4 steps) of
+   phase 5's TSV: finite losses, K4 launches and backward calls exactly as
+   the path needs, ``epoch_1.pt`` loads into the eval model; then one fp32
+   train step of a tiny ViT (head dim 80, LayerScale) on the card against
+   the CPU, as 5b does for RN;
 6. K5 and the bandwidth probe: hold ``stream_scale`` bit for bit against
    its plain version, into fresh NaN-filled buffers, at the probe's (8192,
    8192), at (1000, 1003), at lengths on the kernel's block and wave
@@ -163,6 +182,24 @@ SAE_CACHE_BS, SAE_FEATURES_BS = 1024, 256  # --activations_bs default; save_doma
 SAE_RESAMPLE_ROWS = 8192  # --resample_dataset_size: at most the 8,400 cached train rows
 SAE_STEP_RTOL = 1e-5     # phase 7b: loss, card vs CPU (fp32 summation order)
 SAE_PARAM_TOL = 1e-4     # phase 7b: gradients (in norm) and parameters after the step (of each tensor's scale)
+
+
+# this slice's ViT paths: phase 4b's LSO evaluation, phase 4c's tower at head
+# dim 80, phase 5e's training; phase 3 times K4 at their attention shapes
+VIT_EVAL = "ViT-L-14"
+VIT_HEAD80 = "ViT-H-14"
+VIT_HEAD80_BATCH = 64
+VIT_TRAIN = "ViT-B-16"
+VIT_PATCH_DROPOUT = 0.5
+VIT_336 = "ViT-L-14-336"
+VIT_336_BATCH = 64
+VIT_CHECK = 4  # phase 4b: images and prompts held card vs CPU in fp32
+# phase 4c: the bf16 tower through K4 against the same tower with the plain
+# attention, ||got - ref|| / ||ref|| of the unit-norm features: each of the
+# 32 layers' attention rounds its output to bf16 once in both routes, but
+# the kernel also rounds P to bf16 before P V (as the JAX einsum path does),
+# a few bf16 ulps that the residual stream carries through 32 layers
+VIT_HEAD80_TOL = {"fp32": 1e-4, "bf16": 3e-2}
 
 
 def log(msg: str) -> None:
@@ -390,6 +427,63 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
             torch.cuda.empty_cache()
     report["prompts"] = n_prompts
     return report, errs
+
+
+def vit_attention_shapes(factory) -> list:
+    """(role, B, H, L, D) of K4's non-causal launches on this slice's ViT
+    paths: ViT-L-14's and ViT-H-14's eval batches, ViT-B-16's training
+    microbatch at full length and at the length patch dropout leaves, and a
+    336-px tower."""
+    shapes = []
+    for role, name, batch, dropout in (
+            (f"{VIT_EVAL} eval batch", VIT_EVAL, BATCH, 0.0),
+            (f"{VIT_HEAD80} eval batch (head dim 80)", VIT_HEAD80, BATCH, 0.0),
+            (f"{VIT_TRAIN} training microbatch", VIT_TRAIN, TRAIN_BATCH, 0.0),
+            (f"{VIT_TRAIN} training microbatch, patch dropout {VIT_PATCH_DROPOUT}", VIT_TRAIN, TRAIN_BATCH,
+             VIT_PATCH_DROPOUT),
+            (f"{VIT_336} eval (336 px)", VIT_336, VIT_336_BATCH, 0.0)):
+        v = factory.get_clip_cfg(name).vision
+        patches = v.grid * v.grid
+        seq = 1 + (max(1, int(patches * (1.0 - dropout))) if dropout else patches)
+        shapes.append((role, batch, v.heads, seq, v.width // v.heads))
+    return shapes
+
+
+def phase_vit_attention(torch, flash_attention, factory, dtypes):
+    """K4 non-causal at the ViT paths' shapes, in fp32, bf16 and fp16:
+    against its plain version, timed with the plain version,
+    ``F.scaled_dot_product_attention(is_causal=False)`` and its bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    records, errs = [], {}
+    for role, bsz, heads, seq, hd in vit_attention_shapes(factory):
+        for dname, dt in dtypes.items():
+            esize = torch.finfo(dt).bits // 8
+            q, k, v = (torch.randn(bsz, heads, seq, hd, device="cuda", generator=gen).to(dt) for _ in range(3))
+            got = flash_attention.flash_attention(q, k, v)
+            ref = flash_attention.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            ok, err = close(got, ref, TOLERANCE[dname])
+            errs[dname] = max(errs.get(dname, 0.0), err)
+            if not ok:
+                fail(f"flash_attention {dname} non-causal B={bsz} H={heads} L={seq} D={hd}: max_abs_err {err}")
+            del got, ref
+            rec = {"kernel": "K4", "role": role, "dtype": dname, "B": bsz, "H": heads, "L": seq, "D": hd,
+                   "causal": False, "max_abs_err": err,
+                   "kernel_ms": time_ms(lambda: flash_attention.flash_attention(q, k, v)),
+                   "plain_ms": time_ms(lambda: flash_attention.flash_attention_plain(q, k, v)),
+                   "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=False))}
+            bound(rec, 4.0 * bsz * heads * seq * seq * hd, 4 * bsz * heads * seq * hd * esize, dname)
+            share(rec)
+            records.append(rec)
+            log(f"  K4 {dname} B={bsz} H={heads} L={seq} D={hd} non-causal ({role}): "
+                f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                f"share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return records, errs
 
 
 def rel_err(got, ref) -> float:
@@ -702,6 +796,134 @@ def phase_card_vs_cpu(torch, factory, tokenizer_mod, model_gpu):
     return {"image_max_abs_err": err_img, "text_max_abs_err": err_txt}
 
 
+def vit_lso_counts(cfg) -> dict:
+    """Phase 4b's exact launches: K4 once per image layer and image batch
+    (phase 4's tree in batches of BATCH) and once per text layer and
+    prompt chunk (the 86-template heads in chunks of TEXT_CHUNK); no K1/K2."""
+    image_batches = math.ceil(IMAGENET_WNIDS * IMAGES_PER_WNID / BATCH) + math.ceil(2 * N_DOMAINNET_CLASSES / BATCH)
+    text_chunks = (math.ceil(N_TEMPLATES * N_IMAGENET_CLASSES / TEXT_CHUNK)
+                   + math.ceil(N_TEMPLATES * N_DOMAINNET_CLASSES / TEXT_CHUNK))
+    return {"K1": 0, "K2": 0, "K4": cfg.vision.layers * image_batches + cfg.text.layers * text_chunks}
+
+
+def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, classnames):
+    """Phase 4b: the zero-shot DomainNet-LSO evaluation of a seeded ViT-L-14
+    at full width, bf16, on phase 4's tree, with exact K4 counts; one image
+    batch and one text chunk timed and profiled; 4 images and 4 prompts in
+    fp32 on the card against the port on the CPU."""
+    cfg = factory.get_clip_cfg(VIT_EVAL)
+    t0 = time.perf_counter()
+    model = factory.create_model(VIT_EVAL, seed=0, device="cuda")
+    ckpt = os.path.join(SCRATCH, "vit_eval", "epoch_1.pt")
+    os.makedirs(os.path.dirname(ckpt))
+    torch.save({"epoch": 1, "name": "chip_smoke", "state_dict": model.state_dict()}, ckpt)
+    log(f"  {VIT_EVAL} seed 0 created and saved in {time.perf_counter() - t0:.1f} s")
+    tree = os.path.join(SCRATCH, "tree")
+    out = os.path.join(SCRATCH, "vit_eval", "eval")
+    argv = ["--model", VIT_EVAL, "--domain", "sketch", "--ckpt_files", ckpt, "--out_path", out,
+            "--imagenet_path", os.path.join(tree, "imagenet"), "--domainnet_path", os.path.join(tree, "domainnet"),
+            "--num_workers", "8", "--precision", "bf16"]
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    rc = run_lso.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"K1": fused_conv.launches - fused_conv.launches_with_identity,
+              "K2": fused_conv.launches_with_identity, "K4": flash_attention.launches}
+    if rc != 0:
+        fail(f"run_lso.main ({VIT_EVAL}) returned {rc}")
+    with open(os.path.join(out, "results.json")) as fh:
+        check_results(json.load(fh))
+    want = vit_lso_counts(cfg)
+    log(f"  LSO eval ({VIT_EVAL}, bf16): wall {wall:.2f} s; launches {counts} (expected {want})")
+    if counts["K4"] == 0 or counts != want:
+        fail(f"{VIT_EVAL} LSO launch counts {counts} differ from the path's {want}")
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn(BATCH, cfg.image_size, cfg.image_size, 3, device="cuda", generator=gen)
+    ids = torch.from_numpy(tokenizer_mod.tokenize(
+        [f"a photo of a {classnames[i % len(classnames)]}." for i in range(TEXT_CHUNK)])).cuda()
+    with torch.inference_mode():
+        img_ms = time_ms(lambda: model.encode_image(images, normalize=True, dtype=torch.bfloat16), 200, 10)
+        txt_ms = time_ms(lambda: model.encode_text(ids, normalize=True, dtype=torch.bfloat16), 200, 10)
+    rates = {"eval_wall_s": wall, "image_batch_ms": img_ms, "images_per_s": BATCH / img_ms * 1e3,
+             "text_chunk_ms": txt_ms, "prompts_per_s": TEXT_CHUNK / txt_ms * 1e3}
+    log(f"  {VIT_EVAL} encode_image bf16 batch {BATCH}: {img_ms:.2f} ms ({rates['images_per_s']:.1f} img/s); "
+        f"encode_text bf16 chunk {TEXT_CHUNK}: {txt_ms:.2f} ms ({rates['prompts_per_s']:.1f} prompts/s)")
+    rates["device_time_by_kernel"] = profile_towers(torch, model, images, ids)
+    del images, ids
+
+    model_cpu = factory.create_model(VIT_EVAL, pretrained=ckpt, device="cpu")
+    x = torch.randn(VIT_CHECK, cfg.image_size, cfg.image_size, 3, generator=torch.Generator().manual_seed(13))
+    ids = torch.from_numpy(tokenizer_mod.tokenize(["a photo of a cat.", "a sketch of a barn.",
+                                                   "a quickdraw of a tractor.", "an infograph of a lion."]))
+    with torch.inference_mode():
+        feats = {"image": (model.encode_image(x.cuda(), normalize=True).cpu(),
+                           model_cpu.encode_image(x, normalize=True)),
+                 "text": (model.encode_text(ids.cuda(), normalize=True).cpu(),
+                          model_cpu.encode_text(ids, normalize=True))}
+    errs = {k: float((gpu - cpu).abs().max()) for k, (gpu, cpu) in feats.items()}
+    log(f"  {VIT_EVAL} fp32 card vs CPU, unit-norm features of {VIT_CHECK} images / prompts: max_abs_err {errs} "
+        f"(tolerance {MAIN_CHECK_TOL}: fp32 summation order through 24 + 12 blocks)")
+    if not all(torch_all_finite(gpu) for gpu, _ in feats.values()) or max(errs.values()) > MAIN_CHECK_TOL:
+        fail(f"{VIT_EVAL}: card and CPU disagree in fp32")
+    rates["card_vs_cpu"] = errs
+    del model, model_cpu
+    torch.cuda.empty_cache()
+    return counts, rates
+
+
+def phase_vit_head80(torch, factory, flash_attention):
+    """Phase 4c: a seeded ViT-H-14 image tower (32 layers, width 1280, head
+    dim 80) encodes one batch through K4, in bf16 and fp32, against the same
+    tower with the plain attention on the card; K4's launches counted."""
+    from xclip_tpu_torch.models.transformer import VisionTransformer
+
+    cfg = factory.get_clip_cfg(VIT_HEAD80).vision
+    hd = cfg.width // cfg.heads
+    if hd != 80:
+        fail(f"{VIT_HEAD80} head dim {hd}, expected 80")
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        tower = VisionTransformer(cfg)
+    with torch.no_grad():
+        tower.init_parameters(torch.Generator(device="cuda").manual_seed(0))
+    tower.eval()
+    images = torch.randn(VIT_HEAD80_BATCH, cfg.image_size, cfg.image_size, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(14))
+    log(f"  {VIT_HEAD80} tower ({sum(p.numel() for p in tower.parameters()) / 1e6:.1f} M parameters) on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    kernel_route, res = flash_attention.flash_attention, {}
+    with torch.inference_mode():
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+            torch.cuda.synchronize()
+            before = flash_attention.launches
+            got = tower(images, dtype=dt)
+            torch.cuda.synchronize()
+            launched = flash_attention.launches - before
+            flash_attention.flash_attention = lambda q, k, v, causal=False: flash_attention.flash_attention_plain(
+                q, k, v, causal=causal)
+            try:
+                ref = tower(images, dtype=dt)
+            finally:
+                flash_attention.flash_attention = kernel_route
+            got, ref = (t / t.norm(dim=-1, keepdim=True) for t in (got, ref))
+            err = norm_rel_err(got, ref)
+            res[dname] = {"launches": launched, "rel_err": err, "max_abs_err": float((got - ref).abs().max())}
+            if dname == "bf16":
+                res[dname]["batch_ms"] = time_ms(lambda: tower(images, dtype=dt), 200, 10)
+            log(f"  {VIT_HEAD80} {dname} batch {VIT_HEAD80_BATCH}: {launched} K4 launches at D={hd} (expected "
+                f"{cfg.layers}); kernel vs plain attention, unit-norm features: rel err {err:.3g} "
+                f"(tolerance {VIT_HEAD80_TOL[dname]}), max_abs_err {res[dname]['max_abs_err']:.3g}"
+                + (f"; {res[dname]['batch_ms']:.2f} ms per batch" if "batch_ms" in res[dname] else ""))
+            if launched != cfg.layers or not torch_all_finite(got) or err > VIT_HEAD80_TOL[dname]:
+                fail(f"{VIT_HEAD80} {dname}: {launched} launches, rel err {err}")
+    del tower, images
+    torch.cuda.empty_cache()
+    return res
+
+
 def make_train_tsv(root: str, n: int, seed: int = 0) -> str:
     """Seeded ``filepath\ttitle`` TSV of n random 256 x 256 JPEGs with
     captions from a fixed list."""
@@ -880,17 +1102,18 @@ def tiny_batch(torch):
     return images, texts
 
 
-def phase_train_card_vs_cpu(torch, factory):
-    """One fp32 train step (accum 2, grad checkpointing) of a seeded tiny RN
-    CLIP on the card and on the CPU: loss and every gradient."""
+def phase_train_card_vs_cpu(torch, factory, name=TINY_RN, cfg=TINY_RN_CFG, through="15 BatchNorms"):
+    """One fp32 train step (accum 2, grad checkpointing) of a seeded tiny
+    CLIP (RN, or phase 5e's ViT) on the card and on the CPU: loss and every
+    gradient."""
     from xclip_tpu_torch.train import optim, schedule
     from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
 
-    factory._MODEL_CONFIGS[TINY_RN] = TINY_RN_CFG
+    factory._MODEL_CONFIGS[name] = cfg
     images, texts = tiny_batch(torch)
     results = []
     for device in ("cpu", "cuda"):
-        model = factory.create_model(TINY_RN, device=device, seed=0).train()
+        model = factory.create_model(name, device=device, seed=0).train()
         step = make_train_step(model, optim.adamw(model, lr=1e-4), schedule.const_lr(1e-4, 1),
                                TrainStepCfg(precision="fp32", accum_freq=2, grad_checkpointing=True))
         m = step(images.to(device), texts.to(device), 0)
@@ -901,8 +1124,8 @@ def phase_train_card_vs_cpu(torch, factory):
     # some gradients are 0 up to rounding (the attention pool's key bias)
     grad_err = max(float((g_gpu[n] - g_cpu[n]).abs().max()) / max(float(g_cpu[n].abs().max()), 1e-4)
                    for n in g_cpu)
-    log(f"  fp32 tiny-RN train step, card vs CPU: loss rel err {loss_err:.3g}, worst gradient rel err "
-        f"{grad_err:.3g} (tolerance {TRAIN_CHECK_TOL}: fp32 summation order through 15 BatchNorms)")
+    log(f"  fp32 {name} train step, card vs CPU: loss rel err {loss_err:.3g}, worst gradient rel err "
+        f"{grad_err:.3g} (tolerance {TRAIN_CHECK_TOL}: fp32 summation order through {through})")
     if not math.isfinite(loss_gpu) or loss_err > TRAIN_CHECK_TOL or grad_err > TRAIN_CHECK_TOL:
         fail("card and CPU disagree on the fp32 train step")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
@@ -978,6 +1201,71 @@ def phase_determinism():
     if bad:
         fail(f"two runs of the amp train step from one seed differ: {bad}")
     return out
+
+
+TINY_VIT = "TinyViT-chip-smoke"  # phase 5e: a seeded tiny ViT, head dim 80 (K4's second instance), LayerScale
+TINY_VIT_CFG = {
+    "embed_dim": 64, "vision_cfg": {"image_size": 64, "patch_size": 16, "width": 160, "layers": 2, "head_width": 80,
+                                    "ls_init_value": 0.1},
+    "text_cfg": TINY_RN_CFG["text_cfg"]}
+VIT_TRAIN_STEPS = TRAIN_IMAGES // (TRAIN_BATCH * TRAIN_ACCUM)  # one epoch of phase 5's TSV
+
+
+def vit_train_counts(cfg, steps: int, accum: int) -> dict:
+    """Phase 5e's exact counts: K4 in every ViT and text layer of each
+    microbatch's three forwards (cache, grad, recomputation), its backward
+    once per layer and microbatch; no K1/K2/K3."""
+    micro, layers = steps * accum, cfg.vision.layers + cfg.text.layers
+    return {"K1": 0, "K2": 0, "K3": 0, "K4": micro * 3 * layers, "K1/K2 backward": 0, "K3 backward": 0,
+            "K4 backward": micro * layers}
+
+
+def phase_vit_train(torch, factory, train_main, fused_conv, flash_attention):
+    """Phase 5e: ``train.main`` for ViT-B-16 at batch 128 x accum 2, amp,
+    grad checkpointing and patch dropout 0.5, one epoch (4 steps) of phase
+    5's TSV: finite losses, exact counts, ``epoch_1.pt`` in the eval model;
+    then one fp32 step of a tiny ViT (head dim 80), card vs CPU."""
+    cfg = factory.get_clip_cfg(VIT_TRAIN, force_patch_dropout=VIT_PATCH_DROPOUT)
+    logs = os.path.join(SCRATCH, "vit_train_logs")
+    argv = ["--model", VIT_TRAIN, "--dataset-type", "tsv", "--train-data", os.path.join(SCRATCH, "train_data", "train.tsv"),
+            "--batch-size", str(TRAIN_BATCH), "--accum-freq", str(TRAIN_ACCUM), "--precision", "amp",
+            "--grad-checkpointing", "--force-patch-dropout", str(VIT_PATCH_DROPOUT), "--epochs", "1",
+            "--warmup", "2", "--lr", "1e-3", "--log-every-n-steps", "1", "--seed", "0", "--workers", "8",
+            "--logs", logs, "--name", "vit", "--device", "cuda"]
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    rc = train_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = train_counts(fused_conv, flash_attention)
+    if rc != 0:
+        fail(f"train.main {VIT_TRAIN} returned {rc}")
+    with open(os.path.join(logs, "vit", "out.log")) as fh:
+        lines = [ln for ln in fh.read().splitlines() if "Train Epoch:" in ln]
+    losses = [float(ln.split("Loss: ")[1].split()[0]) for ln in lines]
+    batch_s = [float(ln.split("Batch (t): ")[1].split(",")[0]) for ln in lines]
+    if len(lines) != VIT_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{VIT_TRAIN}: expected {VIT_TRAIN_STEPS} finite losses, found {losses}")
+    want = vit_train_counts(cfg, VIT_TRAIN_STEPS, TRAIN_ACCUM)
+    log(f"  train.main {VIT_TRAIN} b{TRAIN_BATCH} x accum {TRAIN_ACCUM}, amp, grad checkpointing, patch dropout "
+        f"{VIT_PATCH_DROPOUT}: {VIT_TRAIN_STEPS} steps in {wall:.1f} s incl. model and loader start; losses "
+        f"{[round(v, 4) for v in losses]}; Batch (t) {batch_s} s")
+    log(f"  launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{VIT_TRAIN} training counts {counts} differ from the path's {want}")
+    model = factory.create_model(VIT_TRAIN, pretrained=os.path.join(logs, "vit", "checkpoints", "epoch_1.pt"),
+                                 device="cuda")
+    with torch.inference_mode():
+        feats = model.encode_image(torch.randn(4, cfg.image_size, cfg.image_size, 3, device="cuda"),
+                                   normalize=True, dtype=torch.bfloat16)
+    if feats.shape != (4, cfg.embed_dim) or not torch_all_finite(feats):
+        fail(f"{VIT_TRAIN} epoch_1.pt does not give finite features in the eval model")
+    del model
+    torch.cuda.empty_cache()
+    tiny = phase_train_card_vs_cpu(torch, factory, TINY_VIT, TINY_VIT_CFG, "2 + 2 blocks")
+    return counts, {"losses": losses, "batch_s": batch_s, "wall_s": wall, "log_lines": lines,
+                    "tiny_card_vs_cpu": tiny}
 
 
 def eval_tower_counts(cfg, n_images: int, batch: int, text: bool) -> dict:
@@ -1722,7 +2010,7 @@ def phase_sae_card_vs_cpu(torch, store):
 
 
 def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bwd_records, bwd_errs,
-              text_layers: int, sae_counts, k5, ddp_counts):
+              text_layers: int, sae_counts, k5, ddp_counts, vit):
     """One entry per kernel. K1/K2 are timed over one 250-image eval batch
     (the sum over its launches of the per-shape times), K4 over one full
     text chunk (one launch per text block), K3 over one 128-image training
@@ -1732,7 +2020,9 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
     evaluation, training, training with its evaluation in a 1-rank NCCL
     group, and the SAE path's two feature CLIs). K5 is timed
     over one pass of the probe's 8192 x 8192 bf16 array, its launches are
-    the probe's two runs.
+    the probe's two runs. K4's ``vit`` holds its non-causal shapes of the
+    ViT paths (phase 3c), each timed per launch, and the launches of phases
+    4b, 4c and 5e are in its ``launches_by_path``.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -1742,8 +2032,8 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         ("K2", "matmul_affine_act (K2: conv3 + identity)", "fused_conv.cu", "fused_conv.py:67", "K1/K2 backward"),
         ("K3", "matmul_stats (K3: conv1 + BatchNorm batch sums, training)", "fused_conv.cu", "fused_conv.py:187",
          "K3 backward"),
-        ("K4", "flash_attention (K4: causal text self-attention)", "flash_attention.cu",
-         "flash_attention.py:31", "K4 backward"),
+        ("K4", "flash_attention (K4: text self-attention, causal; ViT self-attention, non-causal)",
+         "flash_attention.cu", "flash_attention.py:31", "K4 backward"),
     )
     entries = []
     for kid, name, source, replaces, bwd_key in kernels:
@@ -1774,18 +2064,22 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         per = {"K4": f"one {TEXT_CHUNK}-prompt text chunk", "K3": f"one {TRAIN_BATCH}-image RN50 training forward"
                }.get(kid, f"one {BATCH}-image RN50 eval batch")
         by_path = {"lso_eval": counts.get(kid, 0), "train": train_counts_[kid], "train_ddp_eval": ddp_counts[kid],
-                   "sae_feature_cache": sae_counts["cache"][kid], "save_domainnet_features": sae_counts["features"][kid]}
+                   "sae_feature_cache": sae_counts["cache"][kid], "save_domainnet_features": sae_counts["features"][kid],
+                   "lso_eval_vit_l14": vit["lso_counts"].get(kid, 0),
+                   "vit_h14_tower": sum(r["launches"] for r in vit["head80"].values()) if kid == "K4" else 0,
+                   "train_vit_b16": vit["train_counts"][kid]}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
             "route": "plain PyTorch in a torch.autograd.Function (no backward kernel yet)",
-            "calls_in_train": train_counts_[bwd_key] + ddp_counts[bwd_key], "rel_err": bwd_errs[kid],
+            "calls_in_train": train_counts_[bwd_key] + ddp_counts[bwd_key] + vit["train_counts"][bwd_key],
+            "rel_err": bwd_errs[kid],
             "shapes": sorted({r["shape"] for r in bwd}),
             "ms_bf16": sum(r["backward_ms"] for r in bwd if r["dtype"] == "bf16"),
             "plain_ms_bf16": sum(r["plain_backward_ms"] for r in bwd if r["dtype"] == "bf16"),
             "ms_fp32": sum(r["backward_ms"] for r in bwd if r["dtype"] == "fp32"),
             "plain_ms_fp32": sum(r["plain_backward_ms"] for r in bwd if r["dtype"] == "fp32"),
         }
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"xclip_tpu_torch/ops/csrc/{source}",
             "replaces": f"xclip_tpu/ops/{replaces}", "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -1797,7 +2091,13 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
             "status": ("forward: built, launched by the main paths, agrees with plain in fp32/bf16/fp16; "
                        "backward: agrees with autograd of plain in fp32/bf16, ran in training"),
             "by_dtype": by_dtype, "backward": backward,
-        })
+        }
+        if kid == "K4":  # the ViT paths' non-causal shapes, per launch
+            entry["slower_than_library"] += slower_list(vit["records"])
+            entry["vit"] = {"max_abs_err": vit["errs"], "shapes": [
+                {k: r[k] for k in ("role", "dtype", "B", "H", "L", "D", "kernel_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "share_of_bound", "max_abs_err")} for r in vit["records"]]}
+        entries.append(entry)
     entries.append({
         "name": "stream_scale (K5: bf16 streaming copy-and-scale, the bandwidth probe)", "route": "cuda",
         "source": "xclip_tpu_torch/ops/csrc/stream_scale.cu", "replaces": "tools/probe_mosaic.py:72",
@@ -1867,16 +2167,25 @@ def main() -> int:
         stats_records, stats_errs = phase_stats_kernel(torch, fused_conv, rn50, dtypes)
         log("[phase 3b] each Function's backward vs autograd of its plain version (fp32, bf16)")
         bwd_records, bwd_errs = phase_backward(torch, fused_conv, flash_attention, rn50)
+        log("[phase 3c] K4 non-causal at the ViT paths' shapes (fp32, bf16, fp16)")
+        vit = {}
+        vit["records"], vit["errs"] = phase_vit_attention(torch, flash_attention, factory, dtypes)
         phase_s = {"kernels": time.perf_counter() - t_start}
 
         log("[phase 4] main path: RN50 zero-shot DomainNet-LSO, bf16")
         model, counts, rates = phase_main_path(torch, factory, run_lso, fused_conv, flash_attention,
                                                tokenizer_mod, XCLIP_IMAGENET_CLASSES, LSO_CLASS_TO_IDX)
-        log("[phase 4b] fp32 card vs CPU")
+        log("[phase 4a] fp32 card vs CPU")
         cross = phase_card_vs_cpu(torch, factory, tokenizer_mod, model)
         del model
         torch.cuda.empty_cache()
         phase_s["lso_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[phase 4b] {VIT_EVAL} zero-shot DomainNet-LSO at full width, bf16")
+        vit["lso_counts"], vit["lso"] = phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention,
+                                                      tokenizer_mod, XCLIP_IMAGENET_CLASSES)
+        log(f"[phase 4c] {VIT_HEAD80} image tower through K4 at head dim 80")
+        vit["head80"] = phase_vit_head80(torch, factory, flash_attention)
+        phase_s["vit_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         log("[phase 5] training path: RN50, batch 128 x accum 2, amp, grad checkpointing, 12 steps")
         tcounts, training = phase_train(torch, factory, train_main, fused_conv, flash_attention, rn50)
@@ -1890,6 +2199,10 @@ def main() -> int:
         ddp_counts, training["ddp"] = phase_ddp(torch, factory, train_main, fused_conv, flash_attention, rn50,
                                                 tokenizer_mod, card)
         phase_s["ddp"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[phase 5e] {VIT_TRAIN} training path: batch {TRAIN_BATCH} x accum {TRAIN_ACCUM}, amp, grad "
+            f"checkpointing, patch dropout {VIT_PATCH_DROPOUT}; tiny ViT fp32 step card vs CPU")
+        vit["train_counts"], vit["train"] = phase_vit_train(torch, factory, train_main, fused_conv, flash_attention)
+        phase_s["vit_train"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         log("[phase 6] K5 stream_scale vs plain, and the bandwidth probe")
         k5 = phase_stream_scale(torch, stream_scale, probe_bandwidth)
@@ -1903,12 +2216,12 @@ def main() -> int:
         phase_s["sae"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         kernels = summarize(report, errs, counts, tcounts, stats_records, stats_errs, bwd_records, bwd_errs,
-                            rn50.text.layers, sae_counts, k5, ddp_counts)
+                            rn50.text.layers, sae_counts, k5, ddp_counts, vit)
         detail = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                   "cuda": torch.version.cuda, "build_s": build_s, "kernels": kernels, "report": report,
                   "matmul_stats": stats_records, "backward": bwd_records, "main_path": rates,
                   "launches": counts, "card_vs_cpu": cross, "training": training, "train_launches": tcounts,
-                  "ddp_launches": ddp_counts,
+                  "ddp_launches": ddp_counts, "vit": vit,
                   "stream_scale": k5, "sae": sae, "sae_launches": sae_counts,
                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
         with open(REPORT, "w") as fh:

@@ -104,3 +104,31 @@ def test_zero_shot_template_count_matches_the_metadata():
 
     assert len(metadata.OPENAI_IMAGENET_TEMPLATES) == chip_smoke.ZERO_SHOT_TEMPLATES
     assert len(metadata.IMAGENET_CLASSNAMES) == chip_smoke.DDP_IMAGENET_CLASSES
+
+
+def test_vit_attention_shapes():
+    """Phase 3c's K4 shapes (B, H, L, D): ViT-L-14's and ViT-H-14's eval
+    batches of 250 at 257 tokens (head dims 64 and 80), ViT-B-16's training
+    microbatch at 197 tokens and at the 1 + 98 that patch dropout 0.5
+    keeps, and 64 images of ViT-L-14-336 at 577 tokens."""
+    assert [s[1:] for s in chip_smoke.vit_attention_shapes(factory)] == [
+        (250, 16, 257, 64), (250, 16, 257, 80), (128, 12, 197, 64), (128, 12, 99, 64), (64, 16, 577, 64)]
+
+
+def test_vit_lso_counts_of_vit_l14():
+    """Phase 4b: phase 4's 50 ImageNet and 690 DomainNet images in 1 + 3
+    batches through 24 layers, the 86,000 + 29,670 prompts in 42 + 15
+    chunks through 12 layers; no K1/K2."""
+    cfg = factory.get_clip_cfg(chip_smoke.VIT_EVAL)
+    assert (cfg.vision.layers, cfg.text.layers) == (24, 12)
+    assert chip_smoke.vit_lso_counts(cfg) == {"K1": 0, "K2": 0, "K4": 24 * 4 + 12 * 57}
+
+
+def test_vit_train_counts_of_vit_b16():
+    """Phase 5e: one epoch of 1,024 rows at 128 x accum 2 is 4 steps, 8
+    microbatches of three forwards through 12 + 12 layers, one backward
+    per layer and microbatch."""
+    cfg = factory.get_clip_cfg(chip_smoke.VIT_TRAIN, force_patch_dropout=chip_smoke.VIT_PATCH_DROPOUT)
+    assert chip_smoke.VIT_TRAIN_STEPS == 4
+    assert chip_smoke.vit_train_counts(cfg, chip_smoke.VIT_TRAIN_STEPS, chip_smoke.TRAIN_ACCUM) == {
+        "K1": 0, "K2": 0, "K3": 0, "K4": 576, "K1/K2 backward": 0, "K3 backward": 0, "K4 backward": 192}

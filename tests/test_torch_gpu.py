@@ -121,6 +121,41 @@ def test_flash_attention_kernel_matches_plain(cuda, dt, l):
     assert flash_attention.launches == before + 2
 
 
+# the ViT towers' lengths: B-32 (50), B-32-256 (65), B-16 (197), B-16-plus-240
+# (226), L-14 and H-14 (257), and the 336-px towers (577). Each leaves a
+# ragged last slab and a last key tile of 2, 1, 5, 34, 1 and 1 valid keys.
+VIT_LENGTHS = [50, 65, 197, 226, 257, 577]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("l", VIT_LENGTHS)
+def test_flash_attention_vit_shapes_match_plain(cuda, dt, d, l):
+    """Head dims 64 and 80, non-causal (the ViT towers) and causal, at the
+    ViT lengths: the kernel against its plain version."""
+    gen = torch.Generator().manual_seed(l + d)
+    q, k, v = (torch.randn(2, 3, l, d, generator=gen).to(dt).cuda() for _ in range(3))
+    before = flash_attention.launches
+    for causal in (False, True):
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+    assert flash_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [88, 104, 112])
+def test_flash_attention_names_head_dims_it_lacks(cuda, d):
+    """ViT-g-14 (88), ViT-bigG-14 (104) and ViT-e-14 (112) have no kernel
+    instance: the wrapper raises, naming the head dim, and launches nothing."""
+    q = torch.randn(1, 2, 257, d, device="cuda", dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match=f"head dims \\(64, 80\\); got {d}"):
+        flash_attention.flash_attention(q, q, q)
+    assert flash_attention.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_attention_unaligned_views(cuda, dt):
@@ -301,6 +336,63 @@ def test_tiny_train_step_card_matches_cpu(cuda, monkeypatch):
     assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
     for name, ref in g_cpu.items():
         torch.testing.assert_close(g_gpu[name], ref, atol=1e-3 * float(ref.abs().max()) + 1e-7, rtol=0)
+
+
+# --- the ViT towers -----------------------------------------------------------
+
+TINY_VIT = {"embed_dim": 32,
+            "vision_cfg": {"image_size": 64, "patch_size": 16, "width": 160, "layers": 2, "head_width": 80,
+                           "ls_init_value": 0.1},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 128, "heads": 2, "layers": 2,
+                         "no_causal_mask": True, "pool_type": "last"}}
+
+
+@pytest.mark.gpu
+def test_tiny_vit_card_matches_cpu(cuda, monkeypatch):
+    """A seeded tiny ViT CLIP (head dim 80, LayerScale; a non-causal text
+    tower with last-token pooling) in fp32 on the card against the same
+    model on the CPU: unit-norm features, atol 1e-4; K4 launched once per
+    layer."""
+    from xclip_tpu_torch.models import factory
+    from xclip_tpu_torch.tokenizer import tokenize
+
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyViTgpu", TINY_VIT)
+    cpu = factory.create_model("TinyViTgpu", device="cpu", seed=0)
+    gpu = factory.create_model("TinyViTgpu", device="cuda", seed=0)
+    x = torch.from_numpy(np.random.RandomState(0).randn(5, 64, 64, 3).astype(np.float32))
+    ids = torch.from_numpy(tokenize(["a photo of a cat.", "a sketch of a barn."]))
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = gpu.encode_image(x.cuda(), normalize=True).cpu()
+        assert flash_attention.launches == before + 2
+        torch.testing.assert_close(got, cpu.encode_image(x, normalize=True), atol=1e-4, rtol=0)
+        torch.testing.assert_close(gpu.encode_text(ids.cuda(), normalize=True).cpu(),
+                                   cpu.encode_text(ids, normalize=True), atol=1e-4, rtol=0)
+        feats = gpu.encode_image(x.cuda(), normalize=True, dtype=torch.bfloat16)
+    assert torch.isfinite(feats).all()
+
+
+@pytest.mark.gpu
+def test_tiny_vit_patch_dropout_step_on_card(cuda, monkeypatch):
+    """Two amp train steps of the tiny ViT with patch dropout 0.5 and
+    accum-freq 2 on the card: finite losses, and the same losses from the
+    same seed (the draws come from seeded CUDA generators)."""
+    from xclip_tpu_torch.models import factory
+    from xclip_tpu_torch.train import optim, schedule
+    from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
+
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyViTgpuTrain", TINY_VIT)
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randint(0, 256, (16, 64, 64, 3)).astype(np.uint8)).cuda()
+    texts = torch.from_numpy(rng.randint(1, 49407, (16, 77)).astype(np.int32)).cuda()
+    runs = []
+    for _ in range(2):
+        model = factory.create_model("TinyViTgpuTrain", device="cuda", seed=0,
+                                     force_patch_dropout=0.5).train()
+        step = make_train_step(model, optim.adamw(model, lr=1e-4), schedule.const_lr(1e-4, 2),
+                               TrainStepCfg(precision="amp", accum_freq=2, grad_checkpointing=True, seed=3))
+        runs.append([float(step(images, texts, i)["loss"]) for i in range(2)])
+    assert all(math.isfinite(v) for v in runs[0]) and runs[0] == runs[1]
 
 
 # --- K5 stream_scale and the SAE step ----------------------------------------

@@ -244,8 +244,10 @@ def test_factory_configs_and_devices():
     cfg = factory.get_clip_cfg("RN50-quickgelu")
     assert cfg.vision.layers == (3, 4, 6, 3) and cfg.text.act == "quick_gelu"
     assert cfg.vision.heads == 32 and cfg.embed_dim == 1024
-    with pytest.raises(NotImplementedError):
-        factory.get_clip_cfg("ViT-B-32")
+    vit = factory.get_clip_cfg("ViT-B-32").vision  # the ViT towers are ported since the ViT slice
+    assert (vit.width, vit.heads, vit.seq_len) == (768, 12, 50)
+    with pytest.raises(NotImplementedError, match="timm_model_name"):  # timm towers are not
+        factory.get_clip_cfg("convnext_base")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             factory.create_model("RN50")

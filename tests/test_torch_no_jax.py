@@ -57,7 +57,8 @@ def test_forbidden_pattern_catches_imports():
 def test_modules_import_and_run_with_jax_blocked():
     """With an import hook that refuses jax, jaxlib and the JAX package, every
     module of the port imports, and the slice's CPU paths run: the
-    bandwidth probe, an SAE train step, resample and checkpoint."""
+    bandwidth probe, an SAE train step, resample and checkpoint, and a
+    ViT tower in train mode with patch dropout."""
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -83,6 +84,12 @@ def test_modules_import_and_run_with_jax_blocked():
         "pipe = pipeline.Pipeline(p, losses.SAELossCfg(), optim.adam(1e-3), d, activation_resampler=r)\n"
         "pipe.run_pipeline(train_batch_size=16, train_fnames=[d + '/s.npy'])\n"
         "assert float(pipe.params['encoder']['bias'][0, 0]) == 0.0  # resampled\n"
+        "from xclip_tpu_torch.models import factory\n"
+        "factory._MODEL_CONFIGS['T'] = {'embed_dim': 16, 'text_cfg': {'context_length': 8, 'vocab_size': 100,\n"
+        "    'width': 64, 'heads': 1, 'layers': 1}, 'vision_cfg': {'image_size': 32, 'patch_size': 16, 'width': 64,\n"
+        "    'layers': 1, 'patch_dropout': 0.5}}\n"
+        "vit = factory.create_model('T', device='cpu').train()\n"
+        "assert vit.encode_image(torch.randn(2, 32, 32, 3), generator=torch.Generator()).shape == (2, 16)\n"
         "print('OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

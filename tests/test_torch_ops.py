@@ -105,6 +105,19 @@ def test_flash_attention_matches_pallas(l, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("l", [50, 65])
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_attention_vit_head_dims_match_pallas(l, d):
+    """K4 plain vs the Pallas kernel in interpret mode at the ViT towers'
+    head dims (64; ViT-H's 80) and lengths (ViT-B-32's 50, the 256-px
+    B-32's 65), non-causal: fp32, atol 2e-5, rtol 1e-4."""
+    q, k, v = _qkv(2, 2, l, d, seed=l + d)
+    want = jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=False, interpret=True, block_q=64, block_k=64)
+    got = flash_attention.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
 def test_flash_mha_matches_pallas():
     """(B, L, D) convenience form, causal, text-tower head dim 64."""
     rng = np.random.RandomState(3)

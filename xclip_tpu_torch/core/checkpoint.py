@@ -10,10 +10,12 @@
   ``--resume``;
 - :func:`state_dict_from_jax_params` turns the JAX package's param/state
   pytrees, as nested numpy arrays (``jax.device_get``), into this port's
-  state dict: the port's own copy of the ResNet + text mapping of
-  ``pytrees_to_open_clip_state_dict`` (checkpoint.py:520-616). HWIO conv
-  kernels become OIHW, ``(in, out)`` linear kernels ``(out, in)``, and the
-  separate q/k/v projections the packed ``in_proj_*``.
+  state dict: the port's own copy of the ResNet, ViT and text mapping of
+  ``pytrees_to_open_clip_state_dict`` (checkpoint.py:520-646). HWIO conv
+  kernels become OIHW, ``(in, out)`` linear kernels ``(out, in)``, the
+  separate q/k/v projections the packed ``in_proj_*`` (the attentional
+  pooler's stay separate when its key width differs, as in
+  ``nn.MultiheadAttention``), LayerScale gammas ``ls_1.gamma``/``ls_2.gamma``.
 """
 
 from __future__ import annotations
@@ -111,26 +113,77 @@ def bottleneck_state_dict(params: Mapping, state: Mapping, prefix: str = "") -> 
     return sd
 
 
+def _put_block(sd, dst, src) -> None:
+    """One residual attention block (``transformer.block_init``)."""
+    _put_ln(sd, f"{dst}.ln_1", src["ln_1"])
+    attn = src["attn"]
+    sd[f"{dst}.attn.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(attn[n]["kernel"]).T for n in ("q", "k", "v")], axis=0))
+    sd[f"{dst}.attn.in_proj_bias"] = _t(np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q", "k", "v")]))
+    _put_lin(sd, f"{dst}.attn.out_proj", attn["out"])
+    _put_ln(sd, f"{dst}.ln_2", src["ln_2"])
+    _put_lin(sd, f"{dst}.mlp.c_fc", src["mlp"]["c_fc"])
+    _put_lin(sd, f"{dst}.mlp.c_proj", src["mlp"]["c_proj"])
+    for ls in ("ls_1", "ls_2"):
+        if ls in src:
+            sd[f"{dst}.{ls}.gamma"] = _t(src[ls])
+
+
+def _vit_state_dict(vp: Mapping) -> Dict[str, torch.Tensor]:
+    """``visual.*`` of a ViT tower from JAX's ``vit_init`` params."""
+    sd: Dict[str, torch.Tensor] = {
+        "visual.conv1.weight": _conv(vp["conv1"]["kernel"]),
+        "visual.class_embedding": _t(vp["class_embedding"]),
+        "visual.positional_embedding": _t(vp["positional_embedding"]),
+        "visual.proj": _t(vp["proj"]),
+    }
+    if "ln_pre" in vp:  # absent for no_ln_pre towers
+        _put_ln(sd, "visual.ln_pre", vp["ln_pre"])
+    _put_ln(sd, "visual.ln_post", vp["ln_post"])
+    for i, block in enumerate(vp["blocks"]):
+        _put_block(sd, f"visual.transformer.resblocks.{i}", block)
+    if "attn_pool" in vp:
+        ap = vp["attn_pool"]
+        sd["visual.attn_pool.query"] = _t(ap["query"])
+        w = {n: np.asarray(ap["attn"][n]["kernel"]).T for n in ("q", "k", "v")}
+        if w["q"].shape == w["k"].shape == w["v"].shape:
+            sd["visual.attn_pool.attn.in_proj_weight"] = _t(np.concatenate([w["q"], w["k"], w["v"]]))
+        else:
+            for n in ("q", "k", "v"):
+                sd[f"visual.attn_pool.attn.{n}_proj_weight"] = _t(w[n])
+        sd["visual.attn_pool.attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(ap["attn"][n]["bias"]) for n in ("q", "k", "v")]))
+        _put_lin(sd, "visual.attn_pool.attn.out_proj", ap["attn"]["out"])
+        _put_ln(sd, "visual.attn_pool.ln_q", ap["ln_q"])
+        _put_ln(sd, "visual.attn_pool.ln_k", ap["ln_k"])
+    return sd
+
+
 def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """Port state dict from JAX ``(params, state)`` of a ResNet CLIP.
+    """Port state dict from JAX ``(params, state)`` of a ResNet or ViT CLIP.
 
     ``params``/``state`` are the pytrees of ``xclip_tpu.models.clip.CLIPModel``
     with numpy leaves; ``cfg`` is this port's ``CLIPCfg`` (or the JAX one:
-    only ``vision.layers`` and ``text.layers`` are read).
+    only ``vision.layers`` and ``text.layers`` are read; ``state`` only for
+    a ResNet).
     """
     sd: Dict[str, torch.Tensor] = {}
-    vp, vs = params["visual"], state["visual"]
-    for i in (1, 2, 3):
-        sd[f"visual.conv{i}.weight"] = _conv(vp["stem"][f"conv{i}"]["kernel"])
-        _put_bn(sd, f"visual.bn{i}", vp["stem"][f"bn{i}"], vs["stem"][f"bn{i}"])
-    for li, blocks in enumerate(cfg.vision.layers):
-        for b in range(blocks):
-            sd.update(bottleneck_state_dict(vp[f"layer{li + 1}"][b], vs[f"layer{li + 1}"][b],
-                                            prefix=f"visual.layer{li + 1}.{b}."))
-    ap = vp["attnpool"]
-    sd["visual.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
-    for name, dst_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "c_proj")):
-        _put_lin(sd, f"visual.attnpool.{dst_name}", ap[name])
+    vp = params["visual"]
+    if isinstance(cfg.vision.layers, (list, tuple)):
+        vs = state["visual"]
+        for i in (1, 2, 3):
+            sd[f"visual.conv{i}.weight"] = _conv(vp["stem"][f"conv{i}"]["kernel"])
+            _put_bn(sd, f"visual.bn{i}", vp["stem"][f"bn{i}"], vs["stem"][f"bn{i}"])
+        for li, blocks in enumerate(cfg.vision.layers):
+            for b in range(blocks):
+                sd.update(bottleneck_state_dict(vp[f"layer{li + 1}"][b], vs[f"layer{li + 1}"][b],
+                                                prefix=f"visual.layer{li + 1}.{b}."))
+        ap = vp["attnpool"]
+        sd["visual.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+        for name, dst_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "c_proj")):
+            _put_lin(sd, f"visual.attnpool.{dst_name}", ap[name])
+    else:
+        sd.update(_vit_state_dict(vp))
 
     tp = params["text"]
     sd["token_embedding.weight"] = _t(tp["token_embedding"])
@@ -138,17 +191,6 @@ def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str
     sd["text_projection"] = _t(tp["text_projection"])
     _put_ln(sd, "ln_final", tp["ln_final"])
     for i in range(cfg.text.layers):
-        src = tp["blocks"][i]
-        dst = f"transformer.resblocks.{i}"
-        _put_ln(sd, f"{dst}.ln_1", src["ln_1"])
-        attn = src["attn"]
-        sd[f"{dst}.attn.in_proj_weight"] = _t(np.concatenate(
-            [np.asarray(attn[n]["kernel"]).T for n in ("q", "k", "v")], axis=0))
-        sd[f"{dst}.attn.in_proj_bias"] = _t(np.concatenate(
-            [np.asarray(attn[n]["bias"]) for n in ("q", "k", "v")]))
-        _put_lin(sd, f"{dst}.attn.out_proj", attn["out"])
-        _put_ln(sd, f"{dst}.ln_2", src["ln_2"])
-        _put_lin(sd, f"{dst}.mlp.c_fc", src["mlp"]["c_fc"])
-        _put_lin(sd, f"{dst}.mlp.c_proj", src["mlp"]["c_proj"])
+        _put_block(sd, f"transformer.resblocks.{i}", tp["blocks"][i])
     sd["logit_scale"] = _t(np.asarray(params["logit_scale"]).reshape(()))
     return sd

@@ -3,8 +3,11 @@
 Counterpart of ``xclip_tpu/models/factory.py``. The open_clip JSON configs
 are the port's copies in ``assets/model_configs`` (``_assets``).
 ``create_model`` returns one ``nn.Module`` in eval mode on the requested
-device; the ResNet configs are built (RN50, RN101, RN50x4, RN50x16, RN50x64
-and their -quickgelu variants).
+device; the ResNet configs (RN50, RN101, RN50x4, RN50x16, RN50x64 and their
+-quickgelu variants) and the plain ViT configs (ViT-S/M/B/L/H/g/bigG/e and
+the CLIPA towers) are built. ``force_image_size`` and ``force_patch_dropout``
+override the config as the JAX factory does (:50-62); a checkpoint of
+another grid does not load (no positional-embedding resize).
 """
 
 from __future__ import annotations
@@ -42,10 +45,15 @@ def get_model_config(model_name: str) -> Optional[dict]:
     return deepcopy(cfg) if cfg is not None else None
 
 
-def get_clip_cfg(model_name: str) -> CLIPCfg:
+def get_clip_cfg(model_name: str, force_image_size: Optional[int] = None,
+                 force_patch_dropout: Optional[float] = None) -> CLIPCfg:
     cfg = get_model_config(model_name)
     if cfg is None:
         raise RuntimeError(f"Model config for {model_name} not found; available: {list_models()}")
+    if force_image_size is not None:
+        cfg["vision_cfg"]["image_size"] = force_image_size
+    if force_patch_dropout is not None:
+        cfg["vision_cfg"]["patch_dropout"] = force_patch_dropout
     return clip_cfg_from_dict(cfg)
 
 
@@ -55,6 +63,8 @@ def create_model(
     precision: str = "fp32",
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    force_image_size: Optional[int] = None,
+    force_patch_dropout: Optional[float] = None,
 ) -> CLIP:
     """Build ``model_name`` in eval mode on ``device``.
 
@@ -64,7 +74,7 @@ def create_model(
     and raises when there is none; pass ``device="cpu"`` for the CPU.
     """
     dev = resolve_device(device)
-    cfg = get_clip_cfg(model_name)
+    cfg = get_clip_cfg(model_name, force_image_size, force_patch_dropout)
     with torch.device("meta"):
         model = CLIP(cfg)
     model = model.to_empty(device="cpu")

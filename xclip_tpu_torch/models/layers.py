@@ -147,11 +147,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: i
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
-    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+    t.copy_((torch.rand(t.shape, generator=generator, device=generator.device) * 2 - 1) * bound)
 
 
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    t.copy_(torch.randn(t.shape, generator=generator) * std)
+    t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
+
+
+def layer_norm_init_(ln: nn.LayerNorm) -> None:
+    ln.weight.fill_(1.0)
+    ln.bias.zero_()
 
 
 def conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> None:

@@ -37,6 +37,11 @@
 //   8 warps, and the slabs of one (batch, head) are spread evenly over as
 //   few blocks as that allows. At L = 77 one block of 5 warps covers 80
 //   rows; at 197 and 257 (ViT) two blocks of 7 and three of 6 warps.
+// - The head dim D is a template parameter, instantiated for 64 (the text
+//   towers and ViT-B/L) and 80 (ViT-H): at 80 a slab's P V accumulator is
+//   10 n8 tiles and its q fragments 5 k-steps; rows stay whole 16-byte
+//   vectors (160 B in bf16, 320 B in fp32), and the 16 bytes of padding
+//   per row keep ldmatrix's eight row addresses on distinct banks.
 // - K and V stream through two 64-key stages of shared memory, each row
 //   copied by 16-byte cp.async (zero-filled past L), the next stage loading
 //   while the current one is used. The ring is cut to L where L <= 128, so
@@ -59,7 +64,6 @@
 namespace xk {
 namespace {
 
-constexpr int D = 64;          // head dim, the only one instantiated
 constexpr int SLAB = 16;       // query rows per warp: the mma's M
 constexpr int BKV = 64;        // keys per shared-memory stage
 constexpr int CHUNKS = BKV / 16;  // 16-key chunks per stage
@@ -67,25 +71,25 @@ constexpr int MAX_WARPS = 8;
 constexpr float NEG_BIG = -1e30f;
 
 // shared-memory row length in elements: 16 bytes of padding per row
-template <typename T>
+template <typename T, int D>
 __host__ __device__ constexpr int row_len() {
   return D + 16 / static_cast<int>(sizeof(T));
 }
 
 // q rows, then the K and V rings of `ring` rows each
-template <typename T>
+template <typename T, int D>
 constexpr size_t smem_bytes(int warps, int ring) {
-  return static_cast<size_t>(warps * SLAB + 2 * ring) * row_len<T>() * sizeof(T);
+  return static_cast<size_t>(warps * SLAB + 2 * ring) * row_len<T, D>() * sizeof(T);
 }
 
 // rows [row0, row0 + nrows) of one (L, D) matrix into smem rows 0.., rows
 // at or past L zeroed (so that P = 0 never multiplies stale values)
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0, int nrows, int L,
                                           bool vec_ok) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
-  constexpr int LD = row_len<T>();
+  constexpr int LD = row_len<T, D>();
   for (int i = threadIdx.x; i < nrows * VPR; i += blockDim.x) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
@@ -102,28 +106,28 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
   }
 }
 
-// A fragments of a warp's 16 x 64 query slab, held for the whole key loop
-template <typename T>
+// A fragments of a warp's 16 x D query slab, held for the whole key loop
+template <typename T, int D>
 struct QFrag {
   uint32_t a[D / 16][4];  // per 16-dim k-step, via ldmatrix
   __device__ __forceinline__ void load(const T* Qw, int lane) {
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      ldmatrix_x4(a[ks], Qw + (lane & 15) * row_len<T>() + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(a[ks], Qw + (lane & 15) * row_len<T, D>() + ks * 16 + (lane >> 4) * 8);
   }
 };
 // fp32: the slab stays in shared memory and is read and split per chunk;
 // 32 more registers a thread would halve the blocks an SM holds
-template <>
-struct QFrag<float> {
+template <int D>
+struct QFrag<float, D> {
   const float* q;
   __device__ __forceinline__ void load(const float* Qw, int lane) { q = Qw; }
 };
 
 // s[jj] = q k^T for the 16 keys of chunk Kc (two n8 tiles)
-template <typename T>
-__device__ __forceinline__ void scores(float (&s)[2][4], const QFrag<T>& qf, const T* Kc, int lane) {
-  constexpr int LD = row_len<T>();
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&s)[2][4], const QFrag<T, D>& qf, const T* Kc, int lane) {
+  constexpr int LD = row_len<T, D>();
 #pragma unroll
   for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
@@ -154,9 +158,9 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const QFrag<T>& qf, con
 }
 
 // acc += p v for the 16 keys of chunk Vc; p in the layout of `scores`
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&p)[2][4], const T* Vc, int lane) {
-  constexpr int LD = row_len<T>();
+  constexpr int LD = row_len<T, D>();
   if constexpr (std::is_same<T, float>::value) {
     const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -185,11 +189,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (
 }
 
 // at most 128 registers a thread: at L = 77 (5 warps) three blocks fit an SM
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
                  int L, int ring, float scale_log2, bool causal, bool vec_ok) {
-  constexpr int LD = row_len<T>();
+  constexpr int LD = row_len<T, D>();
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
   // chunks per online-softmax step: the whole stage, or half of it in fp32,
@@ -219,16 +223,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int kt = it * BKV;
     const int rows = min(BKV, (kv_end - kt + 15) / 16 * 16);  // whole 16-key chunks
     const int st = (it & 1) * BKV * LD;
-    load_rows<T>(Ks + st, k + base, kt, rows, L, vec_ok);
-    load_rows<T>(Vs + st, v + base, kt, rows, L, vec_ok);
+    load_rows<T, D>(Ks + st, k + base, kt, rows, L, vec_ok);
+    load_rows<T, D>(Vs + st, v + base, kt, rows, L, vec_ok);
   };
 
-  load_rows<T>(Qs, q + base, q0, bq, L, vec_ok);
+  load_rows<T, D>(Qs, q + base, q0, bq, L, vec_ok);
   cp_async_commit();
   load_tile(0);
   cp_async_commit();
 
-  QFrag<T> qf;
+  QFrag<T, D> qf;
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
@@ -257,7 +261,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float s[STEP][2][4];
 #pragma unroll
       for (int c = 0; c < STEP; ++c)
-        if (c < ns) scores<T>(s[c], qf, Kt + (c0 + c) * 16 * LD, lane);
+        if (c < ns) scores<T, D>(s[c], qf, Kt + (c0 + c) * 16 * LD, lane);
 
       // scale into log2 units, mask, row max over the step
       const bool need_mask = k0 + ns * 16 > L || (causal && k0 + ns * 16 - 1 > r0);
@@ -304,7 +308,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
             s[c][jj][i] = p;
             l[i >> 1] += p;
           }
-        accumulate<T>(acc, s[c], Vt + (c0 + c) * 16 * LD, lane);
+        accumulate<T, D>(acc, s[c], Vt + (c0 + c) * 16 * LD, lane);
       }
     }
     __syncthreads();  // the stage is consumed before the next load overwrites it
@@ -341,26 +345,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int L, int head_dim, float sm_scale,
-           bool causal, cudaStream_t stream) {
-  // head dim 64: the text tower of every RN config and of most ViT configs
-  if (head_dim != D) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int L, float sm_scale, bool causal,
+             cudaStream_t stream) {
   const bool vec_ok = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
   // one warp per 16-row slab; a (batch, head)'s slabs spread evenly over blocks of at most MAX_WARPS
   const int slabs = (L + SLAB - 1) / SLAB;
   const int blocks = (slabs + MAX_WARPS - 1) / MAX_WARPS;
   const int warps = (slabs + blocks - 1) / blocks;
   const int ring = min(2 * BKV, (L + 15) / 16 * 16);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<T>(MAX_WARPS, 2 * BKV)));
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes<T, D>(MAX_WARPS, 2 * BKV)));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = static_cast<float>(static_cast<double>(sm_scale) * 1.4426950408889634);
   dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>(blocks));
-  flash_fwd_kernel<T><<<grid, warps * 32, smem_bytes<T>(warps, ring), stream>>>(
+  flash_fwd_kernel<T, D><<<grid, warps * 32, smem_bytes<T, D>(warps, ring), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), L, ring,
       scale_log2, causal, vec_ok);
   return static_cast<int>(cudaGetLastError());
+}
+
+// head dim 64: the text tower of every config and ViT-S/M/B/L; 80: ViT-H.
+// Any other is refused (the wrapper names the head dims it has).
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int BH, int L, int head_dim, float sm_scale,
+           bool causal, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_d<T, 64>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    case 80:
+      return launch_d<T, 80>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

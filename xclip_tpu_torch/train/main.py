@@ -10,9 +10,10 @@ train.py:train_one_epoch):
   (``parallel.distributed.init_distributed_from_env``; a group that already
   exists is used as it is); rank 0 picks the date-based run name and
   broadcasts it;
-- experiment naming, ``--resume latest``, the model in fp32 with a
-  train-mode forward in the precision's compute dtype, its parameters and
-  buffers broadcast from rank 0 after creation and resume;
+- experiment naming, ``--resume latest``, the model (an RN or plain ViT
+  config, with ``--force-image-size``/``--force-patch-dropout`` applied) in
+  fp32 with a train-mode forward in the precision's compute dtype, its
+  parameters and buffers broadcast from rank 0 after creation and resume;
 - a TSV/CSV or synthetic dataset behind the threaded loader, sharded over
   the ranks, ``batch_size * accum_freq`` rows per rank and step, every
   rank the same number of steps; batches are pinned in the loader's thread
@@ -281,7 +282,9 @@ def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str
                  + f"; {info.world_size} process(es), rank {info.rank}"
                  + (f", {dist.get_backend(group)}." if group is not None else "."))
 
-    model = create_model(args.model, precision="fp32", device=device, seed=args.seed).train()
+    model = create_model(args.model, precision="fp32", device=device, seed=args.seed,
+                         force_image_size=args.force_image_size,
+                         force_patch_dropout=args.force_patch_dropout).train()
     preprocess_train = image_transform(model.cfg.image_size, is_train=True, seed=args.seed)
     preprocess_val = image_transform(model.cfg.image_size, is_train=False)
     tokenizer = get_tokenizer(args.model)
@@ -307,6 +310,7 @@ def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str
             grad_checkpointing=args.grad_checkpointing,
             accum_freq=args.accum_freq,
             grad_clip_norm=args.grad_clip_norm or 0.0,
+            seed=args.seed,
         )
         step_fn = make_train_step(model, optimizer, sched, step_cfg, group=group)
 

@@ -31,7 +31,10 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--train-num-samples", type=int, default=None)
     parser.add_argument("--workers", type=int, default=8, help="decode threads of the loader")
     # model
-    parser.add_argument("--model", type=str, default="RN50")
+    parser.add_argument("--model", type=str, default="RN50", help="an RN or plain ViT config (RN50, ViT-B-16, ...)")
+    parser.add_argument("--force-image-size", type=int, default=None)
+    parser.add_argument("--force-patch-dropout", type=float, default=None,
+                        help="override the ViT config's patch dropout (e.g. 0.5 for FLIP-style training)")
     parser.add_argument("--precision", type=str, default="amp",
                         choices=["amp", "amp_bf16", "amp_bfloat16", "bf16", "fp16", "pure_bf16", "fp32"])
     # optimization
