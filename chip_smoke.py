@@ -23,9 +23,11 @@ Phases, each fatal on failure:
    3c. K4 non-causal at the ViT paths' shapes, in fp32, bf16 and fp16,
    against its plain version, timed with the plain version,
    ``F.scaled_dot_product_attention(is_causal=False)`` and its bound:
-   ViT-L-14's and ViT-H-14's (head dim 80) eval batches of 250 at L = 257,
-   ViT-B-16's training microbatch of 128 at L = 197 and at the 99 tokens
-   patch dropout 0.5 leaves, and 64 images of ViT-L-14-336 at L = 577;
+   the eval batches of 250 at L = 257 of ViT-L-14 and of the towers at
+   head dims 80 (ViT-H-14), 88 (ViT-g-14), 104 (ViT-bigG-14) and 112
+   (ViT-e-14), ViT-B-16's training microbatch of 128 at L = 197 and at the
+   99 tokens patch dropout 0.5 leaves, and 64 images of ViT-L-14-336 at
+   L = 577;
 4. drive the evaluation path at full width: a seeded random RN50 saved as an
    open_clip ``.pt``, a seeded synthetic ImageNet/DomainNet tree at 224 px,
    and ``xclip_tpu_torch.evals.run_lso.main(... --precision bf16)`` (86
@@ -34,13 +36,17 @@ Phases, each fatal on failure:
    (the counts are zeroed just before it and read just after); time one
    image batch and one text chunk; 4a. hold an 8-image fp32 batch (and a
    few prompts) encoded on the card against the port on the CPU;
-   4b. the same evaluation for a seeded ViT-L-14 at full width (24 image
-   layers, 12 text layers, K4 only, exact counts), one image batch and one
-   text chunk timed and profiled, 4 images and 4 prompts in fp32 on the
-   card against the port on the CPU;
-   4c. a seeded ViT-H-14 image tower (32 layers, width 1280, head dim 80)
-   encodes 64 images through K4 in bf16 and fp32, against the same tower
-   with the plain attention; 32 launches each;
+   4b. the same evaluation for a seeded ViT-L-14 (24 image layers, 12
+   text layers, head dim 64) and a seeded ViT-bigG-14 (48 image layers at
+   width 1664, head dim 104; 32 text layers at width 1280; 2.5 B
+   parameters, a 10 GB ``.pt`` deleted after the phase) at full width,
+   K4 only, exact counts by head dim, one image batch and one text chunk
+   timed and profiled, 4 images and 4 prompts in fp32 on the card against
+   the port on the CPU;
+   4c. seeded image towers of ViT-H-14 (32 layers, width 1280, head dim
+   80), ViT-g-14 (40, 1408, 88) and ViT-e-14 (56, 1792, 112) encode 64
+   images each through K4 in bf16 and fp32, against the same tower with
+   the plain attention; one launch per layer;
 5. drive the training path at full width: a seeded TSV of 1,024 random
    256-px JPEGs, ``xclip_tpu_torch.train.main.main`` for RN50 at batch 128,
    accum-freq 2, ``--precision amp``, ``--grad-checkpointing``, 2 epochs,
@@ -184,22 +190,28 @@ SAE_STEP_RTOL = 1e-5     # phase 7b: loss, card vs CPU (fp32 summation order)
 SAE_PARAM_TOL = 1e-4     # phase 7b: gradients (in norm) and parameters after the step (of each tensor's scale)
 
 
-# this slice's ViT paths: phase 4b's LSO evaluation, phase 4c's tower at head
-# dim 80, phase 5e's training; phase 3 times K4 at their attention shapes
+# the ViT paths: phase 4b's LSO evaluations (ViT-L-14, head dim 64; ViT-bigG-14,
+# head dim 104), phase 4c's towers at head dims 80, 88 and 112, phase 5e's
+# training; phase 3c times K4 at their attention shapes
 VIT_EVAL = "ViT-L-14"
-VIT_HEAD80 = "ViT-H-14"
-VIT_HEAD80_BATCH = 64
+VIT_BIGG = "ViT-bigG-14"
+VIT_LSO_MODELS = (VIT_EVAL, VIT_BIGG)
+VIT_TOWERS = ("ViT-H-14", "ViT-g-14", "ViT-e-14")  # head dims 80, 88, 112: image towers alone
+VIT_TOWER_BATCH = 64
 VIT_TRAIN = "ViT-B-16"
 VIT_PATCH_DROPOUT = 0.5
 VIT_336 = "ViT-L-14-336"
 VIT_336_BATCH = 64
 VIT_CHECK = 4  # phase 4b: images and prompts held card vs CPU in fp32
+# phase 4b: fp32 card vs CPU on unit-norm features; the two differ by
+# summation order only (ViT-L-14 measured 1.7e-7)
+VIT_CHECK_TOL = 1e-4
 # phase 4c: the bf16 tower through K4 against the same tower with the plain
-# attention, ||got - ref|| / ||ref|| of the unit-norm features: each of the
-# 32 layers' attention rounds its output to bf16 once in both routes, but
-# the kernel also rounds P to bf16 before P V (as the JAX einsum path does),
-# a few bf16 ulps that the residual stream carries through 32 layers
-VIT_HEAD80_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+# attention, ||got - ref|| / ||ref|| of the unit-norm features: each layer's
+# attention rounds its output to bf16 once in both routes, but the kernel
+# also rounds P to bf16 before P V (as the JAX einsum path does), a few
+# bf16 ulps that the residual stream carries through 32 to 56 layers
+VIT_TOWER_TOL = {"fp32": 1e-4, "bf16": 3e-2}
 
 
 def log(msg: str) -> None:
@@ -430,14 +442,18 @@ def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
 
 
 def vit_attention_shapes(factory) -> list:
-    """(role, B, H, L, D) of K4's non-causal launches on this slice's ViT
-    paths: ViT-L-14's and ViT-H-14's eval batches, ViT-B-16's training
-    microbatch at full length and at the length patch dropout leaves, and a
-    336-px tower."""
+    """(role, B, H, L, D) of K4's non-causal launches on the ViT paths: the
+    eval batches of ViT-L-14 and of the towers at head dims 80 (ViT-H-14),
+    88 (ViT-g-14), 104 (ViT-bigG-14) and 112 (ViT-e-14), ViT-B-16's
+    training microbatch at full length and at the length patch dropout
+    leaves, and a 336-px tower."""
     shapes = []
     for role, name, batch, dropout in (
             (f"{VIT_EVAL} eval batch", VIT_EVAL, BATCH, 0.0),
-            (f"{VIT_HEAD80} eval batch (head dim 80)", VIT_HEAD80, BATCH, 0.0),
+            ("ViT-H-14 eval batch (head dim 80)", "ViT-H-14", BATCH, 0.0),
+            ("ViT-g-14 eval batch (head dim 88)", "ViT-g-14", BATCH, 0.0),
+            (f"{VIT_BIGG} eval batch (head dim 104)", VIT_BIGG, BATCH, 0.0),
+            ("ViT-e-14 eval batch (head dim 112)", "ViT-e-14", BATCH, 0.0),
             (f"{VIT_TRAIN} training microbatch", VIT_TRAIN, TRAIN_BATCH, 0.0),
             (f"{VIT_TRAIN} training microbatch, patch dropout {VIT_PATCH_DROPOUT}", VIT_TRAIN, TRAIN_BATCH,
              VIT_PATCH_DROPOUT),
@@ -796,49 +812,75 @@ def phase_card_vs_cpu(torch, factory, tokenizer_mod, model_gpu):
     return {"image_max_abs_err": err_img, "text_max_abs_err": err_txt}
 
 
-def vit_lso_counts(cfg) -> dict:
+def vit_lso_counts(cfg):
     """Phase 4b's exact launches: K4 once per image layer and image batch
-    (phase 4's tree in batches of BATCH) and once per text layer and
-    prompt chunk (the 86-template heads in chunks of TEXT_CHUNK); no K1/K2."""
+    (phase 4's tree in batches of BATCH, non-causal at the image head dim)
+    and once per text layer and prompt chunk (the 86-template heads in
+    chunks of TEXT_CHUNK, causal at the text head dim); no K1/K2. Returns
+    the counts by kernel and K4's by head dim and mask."""
     image_batches = math.ceil(IMAGENET_WNIDS * IMAGES_PER_WNID / BATCH) + math.ceil(2 * N_DOMAINNET_CLASSES / BATCH)
     text_chunks = (math.ceil(N_TEMPLATES * N_IMAGENET_CLASSES / TEXT_CHUNK)
                    + math.ceil(N_TEMPLATES * N_DOMAINNET_CLASSES / TEXT_CHUNK))
-    return {"K1": 0, "K2": 0, "K4": cfg.vision.layers * image_batches + cfg.text.layers * text_chunks}
+    image, text = cfg.vision.layers * image_batches, cfg.text.layers * text_chunks
+    by_shape = {f"D={cfg.vision.width // cfg.vision.heads}": image,
+                f"D={cfg.text.width // cfg.text.heads} causal": text}
+    return {"K1": 0, "K2": 0, "K4": image + text}, by_shape
 
 
-def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, classnames):
-    """Phase 4b: the zero-shot DomainNet-LSO evaluation of a seeded ViT-L-14
-    at full width, bf16, on phase 4's tree, with exact K4 counts; one image
-    batch and one text chunk timed and profiled; 4 images and 4 prompts in
-    fp32 on the card against the port on the CPU."""
-    cfg = factory.get_clip_cfg(VIT_EVAL)
+def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, classnames, name: str):
+    """Phase 4b: the zero-shot DomainNet-LSO evaluation of a seeded ViT
+    (``name``) at full width, bf16, on phase 4's tree, through
+    ``run_lso.main`` with exact K4 counts (split by head dim and mask, from
+    the calls that launched); one image batch and one text chunk timed and
+    profiled; 4 images and 4 prompts in fp32 on the card against the port on
+    the CPU. The ``.pt`` (about 10 GB for ViT-bigG-14) is deleted at the
+    end."""
+    cfg = factory.get_clip_cfg(name)
+    work = os.path.join(SCRATCH, f"vit_eval_{name}")
+    ckpt = os.path.join(work, "epoch_1.pt")
+    os.makedirs(work)
     t0 = time.perf_counter()
-    model = factory.create_model(VIT_EVAL, seed=0, device="cuda")
-    ckpt = os.path.join(SCRATCH, "vit_eval", "epoch_1.pt")
-    os.makedirs(os.path.dirname(ckpt))
+    model = factory.create_model(name, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
     torch.save({"epoch": 1, "name": "chip_smoke", "state_dict": model.state_dict()}, ckpt)
-    log(f"  {VIT_EVAL} seed 0 created and saved in {time.perf_counter() - t0:.1f} s")
+    log(f"  {name} ({n_params / 1e9:.2f} B parameters) seed 0 created and saved "
+        f"({os.path.getsize(ckpt) / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f} s")
     tree = os.path.join(SCRATCH, "tree")
-    out = os.path.join(SCRATCH, "vit_eval", "eval")
-    argv = ["--model", VIT_EVAL, "--domain", "sketch", "--ckpt_files", ckpt, "--out_path", out,
+    out = os.path.join(work, "eval")
+    argv = ["--model", name, "--domain", "sketch", "--ckpt_files", ckpt, "--out_path", out,
             "--imagenet_path", os.path.join(tree, "imagenet"), "--domainnet_path", os.path.join(tree, "domainnet"),
             "--num_workers", "8", "--precision", "bf16"]
+    by_shape = {}  # (head dim, causal) -> launches, tallied from the calls that launched
+    kernel = flash_attention.flash_attention
+
+    def tally(q, k, v, causal=False, sm_scale=None):
+        before = flash_attention.launches
+        out = kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+        key = f"D={q.shape[-1]}{' causal' if causal else ''}"
+        by_shape[key] = by_shape.get(key, 0) + flash_attention.launches - before
+        return out
+
     torch.cuda.synchronize()
     zero_counts(fused_conv, flash_attention)
+    flash_attention.flash_attention = tally
     t0 = time.perf_counter()
-    rc = run_lso.main(argv)
-    torch.cuda.synchronize()
+    try:
+        rc = run_lso.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        flash_attention.flash_attention = kernel
     wall = time.perf_counter() - t0
     counts = {"K1": fused_conv.launches - fused_conv.launches_with_identity,
               "K2": fused_conv.launches_with_identity, "K4": flash_attention.launches}
     if rc != 0:
-        fail(f"run_lso.main ({VIT_EVAL}) returned {rc}")
+        fail(f"run_lso.main ({name}) returned {rc}")
     with open(os.path.join(out, "results.json")) as fh:
         check_results(json.load(fh))
-    want = vit_lso_counts(cfg)
-    log(f"  LSO eval ({VIT_EVAL}, bf16): wall {wall:.2f} s; launches {counts} (expected {want})")
-    if counts["K4"] == 0 or counts != want:
-        fail(f"{VIT_EVAL} LSO launch counts {counts} differ from the path's {want}")
+    want, want_by_shape = vit_lso_counts(cfg)
+    log(f"  LSO eval ({name}, bf16): wall {wall:.2f} s; launches {counts} (expected {want}), "
+        f"by head dim {by_shape} (expected {want_by_shape})")
+    if counts["K4"] == 0 or counts != want or by_shape != want_by_shape:
+        fail(f"{name} LSO launch counts {counts} {by_shape} differ from the path's {want} {want_by_shape}")
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     images = torch.randn(BATCH, cfg.image_size, cfg.image_size, 3, device="cuda", generator=gen)
@@ -848,13 +890,15 @@ def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenize
         img_ms = time_ms(lambda: model.encode_image(images, normalize=True, dtype=torch.bfloat16), 200, 10)
         txt_ms = time_ms(lambda: model.encode_text(ids, normalize=True, dtype=torch.bfloat16), 200, 10)
     rates = {"eval_wall_s": wall, "image_batch_ms": img_ms, "images_per_s": BATCH / img_ms * 1e3,
-             "text_chunk_ms": txt_ms, "prompts_per_s": TEXT_CHUNK / txt_ms * 1e3}
-    log(f"  {VIT_EVAL} encode_image bf16 batch {BATCH}: {img_ms:.2f} ms ({rates['images_per_s']:.1f} img/s); "
+             "text_chunk_ms": txt_ms, "prompts_per_s": TEXT_CHUNK / txt_ms * 1e3, "parameters": n_params,
+             "launches_by_head_dim": by_shape}
+    log(f"  {name} encode_image bf16 batch {BATCH}: {img_ms:.2f} ms ({rates['images_per_s']:.1f} img/s); "
         f"encode_text bf16 chunk {TEXT_CHUNK}: {txt_ms:.2f} ms ({rates['prompts_per_s']:.1f} prompts/s)")
     rates["device_time_by_kernel"] = profile_towers(torch, model, images, ids)
     del images, ids
 
-    model_cpu = factory.create_model(VIT_EVAL, pretrained=ckpt, device="cpu")
+    model_cpu = factory.create_model(name, pretrained=ckpt, device="cpu")
+    shutil.rmtree(work)
     x = torch.randn(VIT_CHECK, cfg.image_size, cfg.image_size, 3, generator=torch.Generator().manual_seed(13))
     ids = torch.from_numpy(tokenizer_mod.tokenize(["a photo of a cat.", "a sketch of a barn.",
                                                    "a quickdraw of a tractor.", "an infograph of a lion."]))
@@ -864,37 +908,38 @@ def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenize
                  "text": (model.encode_text(ids.cuda(), normalize=True).cpu(),
                           model_cpu.encode_text(ids, normalize=True))}
     errs = {k: float((gpu - cpu).abs().max()) for k, (gpu, cpu) in feats.items()}
-    log(f"  {VIT_EVAL} fp32 card vs CPU, unit-norm features of {VIT_CHECK} images / prompts: max_abs_err {errs} "
-        f"(tolerance {MAIN_CHECK_TOL}: fp32 summation order through 24 + 12 blocks)")
-    if not all(torch_all_finite(gpu) for gpu, _ in feats.values()) or max(errs.values()) > MAIN_CHECK_TOL:
-        fail(f"{VIT_EVAL}: card and CPU disagree in fp32")
+    log(f"  {name} fp32 card vs CPU, unit-norm features of {VIT_CHECK} images / prompts: max_abs_err {errs} "
+        f"(tolerance {VIT_CHECK_TOL}: fp32 summation order through {cfg.vision.layers} + {cfg.text.layers} "
+        f"blocks)")
+    if not all(torch_all_finite(gpu) for gpu, _ in feats.values()) or max(errs.values()) > VIT_CHECK_TOL:
+        fail(f"{name}: card and CPU disagree in fp32")
     rates["card_vs_cpu"] = errs
     del model, model_cpu
     torch.cuda.empty_cache()
     return counts, rates
 
 
-def phase_vit_head80(torch, factory, flash_attention):
-    """Phase 4c: a seeded ViT-H-14 image tower (32 layers, width 1280, head
-    dim 80) encodes one batch through K4, in bf16 and fp32, against the same
-    tower with the plain attention on the card; K4's launches counted."""
+def phase_vit_tower(torch, factory, flash_attention, name: str):
+    """Phase 4c: a seeded image tower of ``name`` (ViT-H-14, -g-14, -e-14:
+    head dims 80, 88, 112) encodes one batch through K4, in bf16 and fp32,
+    against the same tower with the plain attention on the card; K4's
+    launches counted."""
     from xclip_tpu_torch.models.transformer import VisionTransformer
 
-    cfg = factory.get_clip_cfg(VIT_HEAD80).vision
+    cfg = factory.get_clip_cfg(name).vision
     hd = cfg.width // cfg.heads
-    if hd != 80:
-        fail(f"{VIT_HEAD80} head dim {hd}, expected 80")
     t0 = time.perf_counter()
     with torch.device("cuda"):
         tower = VisionTransformer(cfg)
     with torch.no_grad():
         tower.init_parameters(torch.Generator(device="cuda").manual_seed(0))
     tower.eval()
-    images = torch.randn(VIT_HEAD80_BATCH, cfg.image_size, cfg.image_size, 3, device="cuda",
+    images = torch.randn(VIT_TOWER_BATCH, cfg.image_size, cfg.image_size, 3, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(14))
-    log(f"  {VIT_HEAD80} tower ({sum(p.numel() for p in tower.parameters()) / 1e6:.1f} M parameters) on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
-    kernel_route, res = flash_attention.flash_attention, {}
+    n_params = sum(p.numel() for p in tower.parameters())
+    log(f"  {name} tower ({n_params / 1e6:.1f} M parameters, {cfg.layers} layers, width {cfg.width}, head dim {hd}) "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    kernel_route, res = flash_attention.flash_attention, {"head_dim": hd, "parameters": n_params}
     with torch.inference_mode():
         for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
             torch.cuda.synchronize()
@@ -913,12 +958,12 @@ def phase_vit_head80(torch, factory, flash_attention):
             res[dname] = {"launches": launched, "rel_err": err, "max_abs_err": float((got - ref).abs().max())}
             if dname == "bf16":
                 res[dname]["batch_ms"] = time_ms(lambda: tower(images, dtype=dt), 200, 10)
-            log(f"  {VIT_HEAD80} {dname} batch {VIT_HEAD80_BATCH}: {launched} K4 launches at D={hd} (expected "
+            log(f"  {name} {dname} batch {VIT_TOWER_BATCH}: {launched} K4 launches at D={hd} (expected "
                 f"{cfg.layers}); kernel vs plain attention, unit-norm features: rel err {err:.3g} "
-                f"(tolerance {VIT_HEAD80_TOL[dname]}), max_abs_err {res[dname]['max_abs_err']:.3g}"
+                f"(tolerance {VIT_TOWER_TOL[dname]}), max_abs_err {res[dname]['max_abs_err']:.3g}"
                 + (f"; {res[dname]['batch_ms']:.2f} ms per batch" if "batch_ms" in res[dname] else ""))
-            if launched != cfg.layers or not torch_all_finite(got) or err > VIT_HEAD80_TOL[dname]:
-                fail(f"{VIT_HEAD80} {dname}: {launched} launches, rel err {err}")
+            if launched != cfg.layers or not torch_all_finite(got) or err > VIT_TOWER_TOL[dname]:
+                fail(f"{name} {dname}: {launched} launches, rel err {err}")
     del tower, images
     torch.cuda.empty_cache()
     return res
@@ -2021,8 +2066,9 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
     group, and the SAE path's two feature CLIs). K5 is timed
     over one pass of the probe's 8192 x 8192 bf16 array, its launches are
     the probe's two runs. K4's ``vit`` holds its non-causal shapes of the
-    ViT paths (phase 3c), each timed per launch, and the launches of phases
-    4b, 4c and 5e are in its ``launches_by_path``.
+    ViT paths (phase 3c, head dims 64 to 112), each timed per launch, and
+    the launches of phases 4b (ViT-L-14, ViT-bigG-14), 4c (the ViT-H, -g
+    and -e towers) and 5e are in its ``launches_by_path``.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -2065,8 +2111,9 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                }.get(kid, f"one {BATCH}-image RN50 eval batch")
         by_path = {"lso_eval": counts.get(kid, 0), "train": train_counts_[kid], "train_ddp_eval": ddp_counts[kid],
                    "sae_feature_cache": sae_counts["cache"][kid], "save_domainnet_features": sae_counts["features"][kid],
-                   "lso_eval_vit_l14": vit["lso_counts"].get(kid, 0),
-                   "vit_h14_tower": sum(r["launches"] for r in vit["head80"].values()) if kid == "K4" else 0,
+                   **{f"lso_eval_{name}": c.get(kid, 0) for name, c in vit["lso_counts"].items()},
+                   **{f"tower_{name}": (r["bf16"]["launches"] + r["fp32"]["launches"]) if kid == "K4" else 0
+                      for name, r in vit["towers"].items()},
                    "train_vit_b16": vit["train_counts"][kid]}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
@@ -2180,11 +2227,15 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         phase_s["lso_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
-        log(f"[phase 4b] {VIT_EVAL} zero-shot DomainNet-LSO at full width, bf16")
-        vit["lso_counts"], vit["lso"] = phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention,
-                                                      tokenizer_mod, XCLIP_IMAGENET_CLASSES)
-        log(f"[phase 4c] {VIT_HEAD80} image tower through K4 at head dim 80")
-        vit["head80"] = phase_vit_head80(torch, factory, flash_attention)
+        vit["lso_counts"], vit["lso"] = {}, {}
+        for name in VIT_LSO_MODELS:
+            log(f"[phase 4b] {name} zero-shot DomainNet-LSO at full width, bf16")
+            vit["lso_counts"][name], vit["lso"][name] = phase_vit_lso(
+                torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, XCLIP_IMAGENET_CLASSES, name)
+        vit["towers"] = {}
+        for name in VIT_TOWERS:
+            log(f"[phase 4c] {name} image tower through K4")
+            vit["towers"][name] = phase_vit_tower(torch, factory, flash_attention, name)
         phase_s["vit_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         log("[phase 5] training path: RN50, batch 128 x accum 2, amp, grad checkpointing, 12 steps")

@@ -107,21 +107,44 @@ def test_zero_shot_template_count_matches_the_metadata():
 
 
 def test_vit_attention_shapes():
-    """Phase 3c's K4 shapes (B, H, L, D): ViT-L-14's and ViT-H-14's eval
-    batches of 250 at 257 tokens (head dims 64 and 80), ViT-B-16's training
-    microbatch at 197 tokens and at the 1 + 98 that patch dropout 0.5
-    keeps, and 64 images of ViT-L-14-336 at 577 tokens."""
+    """Phase 3c's K4 shapes (B, H, L, D): the eval batches of 250 at 257
+    tokens of ViT-L-14 (head dim 64), ViT-H-14 (80), ViT-g-14 (88),
+    ViT-bigG-14 (104) and ViT-e-14 (112), ViT-B-16's training microbatch
+    at 197 tokens and at the 1 + 98 that patch dropout 0.5 keeps, and 64
+    images of ViT-L-14-336 at 577 tokens."""
     assert [s[1:] for s in chip_smoke.vit_attention_shapes(factory)] == [
-        (250, 16, 257, 64), (250, 16, 257, 80), (128, 12, 197, 64), (128, 12, 99, 64), (64, 16, 577, 64)]
+        (250, 16, 257, 64), (250, 16, 257, 80), (250, 16, 257, 88), (250, 16, 257, 104), (250, 16, 257, 112),
+        (128, 12, 197, 64), (128, 12, 99, 64), (64, 16, 577, 64)]
 
 
 def test_vit_lso_counts_of_vit_l14():
     """Phase 4b: phase 4's 50 ImageNet and 690 DomainNet images in 1 + 3
-    batches through 24 layers, the 86,000 + 29,670 prompts in 42 + 15
-    chunks through 12 layers; no K1/K2."""
+    batches through 24 layers (head dim 64), the 86,000 + 29,670 prompts in
+    42 + 15 chunks through 12 layers (causal, head dim 64); no K1/K2."""
     cfg = factory.get_clip_cfg(chip_smoke.VIT_EVAL)
     assert (cfg.vision.layers, cfg.text.layers) == (24, 12)
-    assert chip_smoke.vit_lso_counts(cfg) == {"K1": 0, "K2": 0, "K4": 24 * 4 + 12 * 57}
+    by_shape = {"D=64": 24 * 4, "D=64 causal": 12 * 57}
+    assert chip_smoke.vit_lso_counts(cfg) == ({"K1": 0, "K2": 0, "K4": 24 * 4 + 12 * 57}, by_shape)
+
+
+def test_vit_lso_counts_of_vit_bigg14():
+    """Phase 4b at ViT-bigG-14: the same 4 image batches through 48 layers
+    at head dim 104 and 57 prompt chunks through 32 text layers (causal,
+    head dim 64): 48 launches per batch, 32 per chunk."""
+    assert chip_smoke.VIT_LSO_MODELS == (chip_smoke.VIT_EVAL, chip_smoke.VIT_BIGG)
+    cfg = factory.get_clip_cfg(chip_smoke.VIT_BIGG)
+    assert (cfg.vision.layers, cfg.text.layers) == (48, 32)
+    by_shape = {"D=104": 48 * 4, "D=64 causal": 32 * 57}
+    assert chip_smoke.vit_lso_counts(cfg) == ({"K1": 0, "K2": 0, "K4": 48 * 4 + 32 * 57}, by_shape)
+
+
+def test_vit_towers_cover_the_remaining_head_dims():
+    """Phase 4c: the image towers at head dims 80, 88 and 112, with the
+    layers and widths of their configs; with phase 4b's 64 and 104 every
+    head dim of K4 runs in a whole tower."""
+    got = [(v.layers, v.width, v.width // v.heads) for v in
+           (factory.get_clip_cfg(name).vision for name in chip_smoke.VIT_TOWERS)]
+    assert got == [(32, 1280, 80), (40, 1408, 88), (56, 1792, 112)]
 
 
 def test_vit_train_counts_of_vit_b16():

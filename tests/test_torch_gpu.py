@@ -144,14 +144,57 @@ def test_flash_attention_vit_shapes_match_plain(cuda, dt, d, l):
     assert flash_attention.launches == before + 2
 
 
+# the large towers' head dims: ViT-g-14 (88), ViT-bigG-14 (104), ViT-e-14
+# (112). 88 and 104 end in a k-step and an n8 tile of 8 in the 16-bit
+# route; random q, k and v put weight in those last 8 columns, so a kernel
+# that dropped them would fail these comparisons. Lengths: one key, one
+# slab, a stage + 1, the text tower's 77, ViT-B-16's 99 after patch
+# dropout, 197 and the 224-px /14 towers' 257.
+LARGE_HEAD_DIMS = [88, 104, 112]
+LARGE_HEAD_LENGTHS = [1, 16, 65, 77, 99, 197, 257]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [88, 104, 112])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", LARGE_HEAD_DIMS)
+@pytest.mark.parametrize("l", LARGE_HEAD_LENGTHS)
+def test_flash_attention_large_head_dims_match_plain(cuda, dt, d, l):
+    """Head dims 88, 104 and 112, non-causal and causal: the kernel against
+    its plain version."""
+    gen = torch.Generator().manual_seed(l + d)
+    q, k, v = (torch.randn(2, 3, l, d, generator=gen).to(dt).cuda() for _ in range(3))
+    before = flash_attention.launches
+    for causal in (False, True):
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+    assert flash_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_bigg_image_batch_matches_plain(cuda, dt):
+    """ViT-bigG-14's eval batch: 250 images x 16 heads, 257 tokens, head dim
+    104, non-causal; the last 8 output columns are checked on their own as
+    well."""
+    gen = torch.Generator().manual_seed(104)
+    q, k, v = (torch.randn(250, 16, 257, 104, generator=gen).to(dt).cuda() for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v)
+    ref = flash_attention.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got[..., 96:].float(), ref[..., 96:].float(), atol=TOL[dt], rtol=TOL[dt])
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [72, 96])
 def test_flash_attention_names_head_dims_it_lacks(cuda, d):
-    """ViT-g-14 (88), ViT-bigG-14 (104) and ViT-e-14 (112) have no kernel
-    instance: the wrapper raises, naming the head dim, and launches nothing."""
+    """A head dim with no kernel instance (72: the text towers of the
+    SO400M-SigLIP and ViTamin-XL configs, which the port does not build
+    yet; 96: no config): the wrapper raises, naming the head dims it has,
+    and launches nothing."""
     q = torch.randn(1, 2, 257, d, device="cuda", dtype=torch.bfloat16)
     before = flash_attention.launches
-    with pytest.raises(ValueError, match=f"head dims \\(64, 80\\); got {d}"):
+    with pytest.raises(ValueError, match=f"head dims \\(64, 80, 88, 104, 112\\); got {d}"):
         flash_attention.flash_attention(q, q, q)
     assert flash_attention.launches == before
 
@@ -167,6 +210,22 @@ def test_flash_attention_unaligned_views(cuda, dt):
         got = flash_attention.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=causal)
         want = flash_attention.flash_attention(q, k, v, causal=causal)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", LARGE_HEAD_DIMS)
+def test_flash_attention_unaligned_views_large_head_dims(cuda, dt, d):
+    """Head dims 88, 104 and 112 off a 16-byte boundary: the scalar route
+    gives the same bits as aligned inputs, and both agree with plain."""
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(3, 2, 77, d, generator=gen).to(dt).cuda() for _ in range(3))
+    for causal in (False, True):
+        got = flash_attention.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=causal)
+        want = flash_attention.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
 
 
 @pytest.mark.gpu

@@ -118,6 +118,21 @@ def test_flash_attention_vit_head_dims_match_pallas(l, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("d", [88, 104, 112])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_large_head_dims_match_pallas(d, causal):
+    """K4 plain vs the Pallas kernel in interpret mode at the head dims of
+    ViT-g-14 (88), ViT-bigG-14 (104) and ViT-e-14 (112), causal and not, at
+    a ragged length (37: one partial 64-row block): fp32, atol 2e-5, rtol
+    1e-4."""
+    q, k, v = _qkv(1, 1, 37, d, seed=d + causal)
+    want = jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal, interpret=True, block_q=64, block_k=64)
+    got = flash_attention.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                          causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
 def test_flash_mha_matches_pallas():
     """(B, L, D) convenience form, causal, text-tower head dim 64."""
     rng = np.random.RandomState(3)

@@ -12,14 +12,21 @@
   train transform, loader order, the asset copies.
 - The CLI: a tiny ``train.main`` run with ``--device cpu`` on synthetic data
   and on a TSV, with ``--resume latest``; its ``.pt`` loads in the JAX
-  package's ``create_model(pretrained=...)`` with the same features.
+  package's ``create_model(pretrained=...)`` with the same features; the
+  headline launcher's command parses; ``--report-to tensorboard`` writes
+  JAX's six train tags, ``--report-to wandb`` the offline metric stream.
 
 Everything is fp32 on the CPU, so tolerances cover summation order only;
 each states its own.
 """
 
 import filecmp
+import json
+import os
 import random
+import stat
+import subprocess
+import sys
 
 import numpy as np
 import optax
@@ -425,3 +432,99 @@ def test_main_cli_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_main.main(["--dataset-type", "synthetic"])
+
+
+def _launcher_argv(tmp_path, resume: bool):
+    """The training command that ``launchers/train-clip.sh`` runs for task 5
+    (RN50, seed 0), read from a ``python`` stub on PATH, after the
+    interpreter's ``-u -m xclip_tpu.train.main``."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    out = tmp_path / "argv.txt"
+    stub = bin_dir / "python"
+    stub.write_text(f'#!/bin/bash\nprintf "%s\\n" "$@" > "{out}"\n')
+    stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
+    if resume:
+        ckpts = tmp_path / "logs" / "clip" / "RN50-lso-rs-nosketchclasses-s0" / "checkpoints"
+        ckpts.mkdir(parents=True)
+        (ckpts / "epoch_latest.pt").write_bytes(b"")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PATH=f"{bin_dir}:{os.environ['PATH']}", TASK_ID="5")
+    subprocess.run(["bash", os.path.join(root, "launchers", "train-clip.sh")], cwd=tmp_path, env=env,
+                   check=True, capture_output=True, timeout=60)
+    argv = out.read_text().splitlines()
+    assert argv[:3] == ["-u", "-m", "xclip_tpu.train.main"]
+    return argv[3:]
+
+
+@pytest.mark.parametrize("resume", [False, True])
+def test_launcher_command_parses(tmp_path, resume):
+    """Every flag of the headline launcher's command (launchers/train-clip.sh,
+    ``--report-to tensorboard`` and ``--resume latest`` included) goes
+    through the port's ``parse_args`` with the values JAX's parser gives."""
+    from xclip_tpu.train.params import parse_args as jax_parse_args
+    from xclip_tpu_torch.train.params import parse_args
+
+    argv = _launcher_argv(tmp_path, resume)
+    args, want = parse_args(argv), jax_parse_args(argv)
+    assert args.report_to == "tensorboard" and args.resume == ("latest" if resume else None)
+    assert (args.batch_size, args.accum_freq, args.model, args.epochs) == (128, 2, "RN50", 32)
+    for key, val in vars(args).items():
+        if hasattr(want, key) and key != "device":
+            assert getattr(want, key) == val, key
+    assert (args.wandb_notes, args.wandb_project_name) == ("", "open-clip")
+
+
+def _report_run(tmp_path, monkeypatch, report_to, extra=()):
+    from xclip_tpu_torch.train import main as train_main
+
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyRNtrain", TINY_TRAIN)
+    argv = ["--model", "TinyRNtrain", "--dataset-type", "synthetic", "--train-num-samples", "4",
+            "--batch-size", "4", "--epochs", "1", "--precision", "fp32", "--warmup", "1",
+            "--logs", str(tmp_path / "logs"), "--name", "run", "--log-every-n-steps", "1",
+            "--device", "cpu", "--workers", "1", "--report-to", report_to, *extra]
+    assert train_main.main(argv) == 0
+    return tmp_path / "logs" / "run"
+
+
+TRAIN_TAGS = ["train/loss", "train/logit_scale", "train/samples_per_second", "train/samples_per_second_per_gpu",
+              "train/data_time", "train/batch_time"]
+
+
+def test_report_to_tensorboard_writes_the_train_scalars(tmp_path, monkeypatch):
+    """``--report-to tensorboard``: one step writes an event file under
+    ``<logs>/<name>/tensorboard`` with JAX's six train tags at step 0, the
+    loss the one the log line shows. TensorFlow is kept out of the import
+    (tensorboard then uses its own stub; with TensorFlow the import takes
+    ~20 s and 1 GB here)."""
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    run = _report_run(tmp_path, monkeypatch, "tensorboard")
+    (events,) = (run / "tensorboard").glob("events.out.tfevents.*")
+    scalars = {}
+    for event in EventFileLoader(str(events)).Load():
+        for value in event.summary.value:
+            scalars[value.tag] = (event.step, value.tensor.float_val[0] if value.HasField("tensor")
+                                  else value.simple_value)
+    assert sorted(scalars) == sorted(TRAIN_TAGS) and {step for step, _ in scalars.values()} == {0}
+    logged = float((run / "out.log").read_text().split("Loss: ")[1].split()[0])
+    assert scalars["train/loss"][1] == pytest.approx(logged, rel=1e-4)
+    assert all(np.isfinite(v) for _, v in scalars.values()) and scalars["train/samples_per_second"][1] > 0
+
+
+def test_report_to_wandb_writes_the_offline_stream(tmp_path, monkeypatch):
+    """``--report-to wandb`` without the wandb package: the six train scalars
+    at step 0, then the ``val/*`` metrics of ``--val-data`` at step 1 (one
+    epoch of one step), in ``wandb-offline/history.jsonl``, with the run
+    config and the summary."""
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    tsv = _write_tsv(tmp_path, n=4)
+    run = _report_run(tmp_path, monkeypatch, "wandb", ["--val-data", str(tsv)])
+    offline = run / "wandb-offline"
+    rows = [json.loads(line) for line in (offline / "history.jsonl").read_text().splitlines()]
+    assert [row["_step"] for row in rows] == [0, 1]
+    assert sorted(k for k in rows[0] if k != "_step") == sorted(TRAIN_TAGS)
+    assert {"val/clip_val_loss", "val/image_to_text_R@1", "val/epoch"} <= set(rows[1])
+    assert json.loads((offline / "config.json").read_text())["report_to"] == "wandb"
+    assert json.loads((offline / "summary.json").read_text())["_step"] == 1

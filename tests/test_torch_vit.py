@@ -31,6 +31,8 @@ from jax.sharding import NamedSharding, PartitionSpec
 from test_torch_models import release_memory_after_module  # noqa: F401
 from test_torch_train import _keep_grads
 from xclip_tpu.core.checkpoint import (
+    _resize_text_pos_embed,
+    _resize_vit_pos_embed,
     load_checkpoint,
     open_clip_state_dict_to_pytrees,
     pytrees_to_open_clip_state_dict,
@@ -44,7 +46,13 @@ from xclip_tpu.parallel.mesh import create_mesh
 from xclip_tpu.train import optim as jax_optim
 from xclip_tpu.train import schedule as jax_schedule
 from xclip_tpu.train import step as jax_step
-from xclip_tpu_torch.core.checkpoint import load_open_clip_checkpoint, state_dict_from_jax_params
+from xclip_tpu_torch.core.checkpoint import (
+    load_open_clip_checkpoint,
+    load_training_checkpoint,
+    resize_text_pos_embed,
+    resize_vit_pos_embed,
+    state_dict_from_jax_params,
+)
 from xclip_tpu_torch.models import factory
 from xclip_tpu_torch.models.clip import CLIP, clip_cfg_from_dict
 from xclip_tpu_torch.models.transformer import get_2d_sincos_pos_embed, patch_dropout
@@ -73,6 +81,10 @@ VIT_VARIANTS = {
     "attentional_pool_packed": _tiny({"attentional_pool": True, "attn_pooler_queries": 8,
                                       "attn_pooler_heads": 2, "width": 128}, embed_dim=128),
     "quick_gelu": _tiny({"width": 128}, quick_gelu=True),
+    # two heads at the head dims of ViT-g-14, ViT-bigG-14 and ViT-e-14
+    "head_width_88": _tiny({"width": 176, "head_width": 88}),
+    "head_width_104": _tiny({"width": 208, "head_width": 104}),
+    "head_width_112": _tiny({"width": 224, "head_width": 112}),
 }
 TEXT_VARIANTS = {
     "no_causal_mask_last": _tiny(text={"no_causal_mask": True, "pool_type": "last"}),
@@ -277,6 +289,54 @@ def test_vit_config_matches_jax(name):
             assert getattr(g, field) == getattr(w, field), f"{part}.{field}"
     assert (got.embed_dim, got.image_size) == (want.embed_dim, want.image_size)
     assert got.init_logit_scale == pytest.approx(want.init_logit_scale)
+
+
+@pytest.mark.parametrize("old,new", [(7, 14), (16, 7), (14, 10)])
+def test_vit_pos_embed_resize_matches_jax(old, new):
+    """The grid of a ViT positional embedding resampled as JAX's loader does
+    (bicubic, a = -0.5, antialiased when shrinking; the class token kept):
+    up 7 -> 14, down 16 -> 7 and 14 -> 10, atol 1e-5."""
+    pe = np.random.RandomState(old * 100 + new).randn(1 + old * old, 48).astype(np.float32)
+    want = _resize_vit_pos_embed(pe, 1 + new * new)
+    got = resize_vit_pos_embed(torch.from_numpy(pe), 1 + new * new)
+    assert got.dtype == torch.float32 and torch.equal(got[0], torch.from_numpy(pe[0]))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="non-square grid"):
+        resize_vit_pos_embed(torch.from_numpy(pe), new * new)
+
+
+@pytest.mark.parametrize("new", [32, 100])
+def test_text_pos_embed_resize_matches_jax(new):
+    """The text positional embedding resampled linearly to another context
+    length (77 -> 32, a CLIPA config's; 77 -> 100), as JAX's loader does."""
+    pe = np.random.RandomState(new).randn(77, 48).astype(np.float32)
+    got = resize_text_pos_embed(torch.from_numpy(pe), new)
+    np.testing.assert_allclose(got.numpy(), _resize_text_pos_embed(pe, new), atol=1e-5, rtol=0)
+
+
+def test_pretrained_pt_loads_at_another_image_size_as_in_jax(tmp_path, monkeypatch):
+    """A tiny ViT's ``.pt`` at 32 px (a 4 x 4 grid) loads under
+    ``force_image_size`` 48 (6 x 6) through the port's
+    ``create_model(pretrained=...)`` and through JAX's ``load_checkpoint``
+    into the same config: the same features, atol 1e-4;
+    ``load_training_checkpoint`` resizes the same way (shrinking is held
+    by ``test_vit_pos_embed_resize_matches_jax``)."""
+    d = VIT_VARIANTS["learnable"]
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyViTresize", d)
+    path = tmp_path / "epoch_1.pt"
+    torch.save({"epoch": 1, "state_dict": factory.create_model("TinyViTresize", device="cpu", seed=3).state_dict()},
+               path)
+    port = factory.create_model("TinyViTresize", pretrained=str(path), device="cpu", force_image_size=48)
+    model = CLIPModel(jax_clip_cfg_from_dict({**d, "vision_cfg": {**d["vision_cfg"], "image_size": 48}}))
+    params, _ = load_checkpoint(str(path), _ShapeInit(model), None, None)
+    x = np.random.RandomState(48).randn(2, 48, 48, 3).astype(np.float32)
+    with torch.inference_mode():
+        got = port.encode_image(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), _jax_encode_image(model, params, x), atol=1e-4, rtol=0)
+    resumed = factory.create_model("TinyViTresize", device="cpu", seed=4, force_image_size=48)
+    load_training_checkpoint(str(path), resumed)
+    assert torch.equal(resumed.state_dict()["visual.positional_embedding"],
+                       port.state_dict()["visual.positional_embedding"])
 
 
 def test_factory_forces_image_size_and_patch_dropout():

@@ -8,6 +8,12 @@
   ``torch.optim``'s ``state_dict()``; reference training/main.py:450-483)
   atomically, and :func:`load_training_checkpoint` reads it back for
   ``--resume``;
+- :func:`resize_pos_embeds` resamples a checkpoint's positional embeddings
+  to the model's grid and context length, as JAX's loader does
+  (``_resize_vit_pos_embed`` and ``_resize_text_pos_embed``,
+  checkpoint.py:253-275,389-403): ``create_model(pretrained=...)`` and
+  :func:`load_training_checkpoint` apply it, so a 224-px ``.pt`` loads
+  under ``--force-image-size``;
 - :func:`state_dict_from_jax_params` turns the JAX package's param/state
   pytrees, as nested numpy arrays (``jax.device_get``), into this port's
   state dict: the port's own copy of the ResNet, ViT and text mapping of
@@ -20,6 +26,7 @@
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Mapping, Optional
 
@@ -63,10 +70,73 @@ def load_training_checkpoint(path: str, model: torch.nn.Module,
     state from a checkpoint written by :func:`save_checkpoint` (or by
     open_clip); returns ``{"epoch": ..., "name": ...}`` as stored."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(_state_dict_of(ckpt, path), strict=True)
+    model.load_state_dict(resize_pos_embeds(_state_dict_of(ckpt, path), model.cfg), strict=True)
     if optimizer is not None and isinstance(ckpt, dict) and "optimizer" in ckpt:
         optimizer.load_state_dict(ckpt["optimizer"])
     return {k: ckpt[k] for k in ("epoch", "name") if isinstance(ckpt, dict) and k in ckpt}
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 at |x| (``jax.image``'s
+    bicubic; PyTorch's bicubic without antialiasing uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) resampling weights of ``jax.image.resize(...,
+    method="bicubic")`` (``scale_and_translate`` with antialiasing, no
+    translation): half-pixel centres, the kernel widened by n_in / n_out
+    when shrinking, each output's weights normalised to sum 1 (so taps past
+    the edge drop out instead of clamping)."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale, 1.0))
+    total = w.sum(axis=0, keepdims=True)
+    return np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0.0)
+
+
+def resize_vit_pos_embed(pe: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """A ViT's (1 + g^2, width) positional embedding at ``seq_len`` = 1 +
+    n^2 rows: the class token kept, the g x g grid resampled bicubically to
+    n x n as JAX's ``_resize_vit_pos_embed`` does (open_clip's own
+    ``resize_pos_embed`` uses a = -0.75 and differs slightly)."""
+    if pe.shape[0] == seq_len:
+        return pe
+    tok, grid = pe[:1], pe[1:]
+    old, new = math.isqrt(grid.shape[0]), math.isqrt(seq_len - 1)
+    if old * old != grid.shape[0] or new * new != seq_len - 1:
+        raise ValueError(f"cannot resize pos embed {pe.shape[0]} -> {seq_len}: non-square grid")
+    w = torch.from_numpy(_bicubic_weights(old, new))
+    out = torch.einsum("hwc,hy,wx->yxc", grid.double().reshape(old, old, -1), w, w)
+    return torch.cat([tok, out.reshape(new * new, -1).to(pe.dtype)])
+
+
+def resize_text_pos_embed(pe: torch.Tensor, context_length: int) -> torch.Tensor:
+    """The text positional embedding resampled linearly to
+    ``context_length`` rows (``align_corners=False``, clamped at the ends),
+    as JAX's ``_resize_text_pos_embed`` does."""
+    old = pe.shape[0]
+    if old == context_length:
+        return pe
+    coords = np.clip((np.arange(context_length) + 0.5) * (old / context_length) - 0.5, 0, old - 1)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, old - 1)
+    frac = torch.from_numpy((coords - lo).astype(np.float32))[:, None]
+    out = pe[torch.from_numpy(lo)].float() * (1.0 - frac) + pe[torch.from_numpy(hi)].float() * frac
+    return out.to(pe.dtype)
+
+
+def resize_pos_embeds(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """``sd`` with its ViT and text positional embeddings resampled to
+    ``cfg``'s (the port's ``CLIPCfg``) grid and context length, in place."""
+    if "visual.positional_embedding" in sd:
+        sd["visual.positional_embedding"] = resize_vit_pos_embed(sd["visual.positional_embedding"],
+                                                                 cfg.vision.seq_len)
+    if "positional_embedding" in sd:
+        sd["positional_embedding"] = resize_text_pos_embed(sd["positional_embedding"], cfg.text.context_length)
+    return sd
 
 
 def _t(a) -> torch.Tensor:

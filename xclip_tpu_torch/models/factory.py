@@ -7,7 +7,8 @@ device; the ResNet configs (RN50, RN101, RN50x4, RN50x16, RN50x64 and their
 -quickgelu variants) and the plain ViT configs (ViT-S/M/B/L/H/g/bigG/e and
 the CLIPA towers) are built. ``force_image_size`` and ``force_patch_dropout``
 override the config as the JAX factory does (:50-62); a checkpoint of
-another grid does not load (no positional-embedding resize).
+another grid or context length loads with its positional embeddings
+resampled as JAX's loader does (``core.checkpoint.resize_pos_embeds``).
 """
 
 from __future__ import annotations
@@ -80,9 +81,9 @@ def create_model(
     model = model.to_empty(device="cpu")
     if pretrained:
         # strict: every parameter and buffer comes from the checkpoint
-        from xclip_tpu_torch.core.checkpoint import load_open_clip_checkpoint
+        from xclip_tpu_torch.core.checkpoint import load_open_clip_checkpoint, resize_pos_embeds
 
-        model.load_state_dict(load_open_clip_checkpoint(pretrained), strict=True)
+        model.load_state_dict(resize_pos_embeds(load_open_clip_checkpoint(pretrained), cfg), strict=True)
     else:
         model.init_parameters(torch.Generator().manual_seed(seed))
     param_dtype = get_policy(precision).param_dtype

@@ -34,14 +34,29 @@
 //   columns t and t+4, so the keys of each 8-key step are taken in that
 //   permuted order, and V's rows are read in the same order.
 // - Query tiling fitted to L. A block has one warp per 16-row slab, up to
-//   8 warps, and the slabs of one (batch, head) are spread evenly over as
-//   few blocks as that allows. At L = 77 one block of 5 warps covers 80
-//   rows; at 197 and 257 (ViT) two blocks of 7 and three of 6 warps.
+//   8 warps (6 above D = 80), and the slabs of one (batch, head) are
+//   spread evenly over as few blocks as that allows. At L = 77 one block
+//   of 5 warps covers 80 rows; at 197 and 257 (ViT) two blocks of 7 (three
+//   of 5 above D = 80) and three of 6 warps.
 // - The head dim D is a template parameter, instantiated for 64 (the text
-//   towers and ViT-B/L) and 80 (ViT-H): at 80 a slab's P V accumulator is
-//   10 n8 tiles and its q fragments 5 k-steps; rows stay whole 16-byte
-//   vectors (160 B in bf16, 320 B in fp32), and the 16 bytes of padding
-//   per row keep ldmatrix's eight row addresses on distinct banks.
+//   towers and ViT-B/L), 80 (ViT-H), 88 (ViT-g), 104 (ViT-bigG) and 112
+//   (ViT-e); any multiple of 8 compiles. A slab's P V accumulator is D / 8
+//   n8 tiles and its q fragments D / 16 k-steps of 16. Where D is an odd
+//   multiple of 8 (88, 104) the 16-bit q k^T takes one more k-step of 8
+//   (mma.sync m16n8k8, q and k through ldmatrix.x2) and P V one more n8
+//   tile (ldmatrix.x2.trans of V): no column is padded or read twice, and
+//   no loop drops the last 8. Rows stay whole 16-byte vectors (176, 208
+//   and 224 B in bf16), and each shared-memory row is padded to an odd
+//   number of 16-byte vectors, so ldmatrix's eight row addresses (and the
+//   fp32 path's lane groups) fall on distinct banks at every D.
+// - Registers: two blocks an SM at most. Up to D = 80 a block has up to 8
+//   warps and a thread 128 registers. Above, the q fragments and the
+//   accumulator alone take 80-84 registers in 16-bit (the fp32
+//   accumulator 52-56), so a block has up to 6 warps and a thread 168
+//   registers: at L = 257 a (batch, head) is 3 blocks of 6 warps either
+//   way. Uncapped, 16-bit D = 112 took 174 registers, one block an SM
+//   and 1.55x the time; at 168 it does not spill (ptxas's counts are in
+//   build.log).
 // - K and V stream through two 64-key stages of shared memory, each row
 //   copied by 16-byte cp.async (zero-filled past L), the next stage loading
 //   while the current one is used. The ring is cut to L where L <= 128, so
@@ -67,13 +82,21 @@ namespace {
 constexpr int SLAB = 16;       // query rows per warp: the mma's M
 constexpr int BKV = 64;        // keys per shared-memory stage
 constexpr int CHUNKS = BKV / 16;  // 16-key chunks per stage
-constexpr int MAX_WARPS = 8;
+// warps a block holds at most: 8 up to D = 80, 6 above, so that two blocks
+// fit an SM at up to 168 registers a thread (65,536 / (2 * 192))
+template <int D>
+__host__ __device__ constexpr int max_warps() {
+  return D <= 80 ? 8 : 6;
+}
 constexpr float NEG_BIG = -1e30f;
 
-// shared-memory row length in elements: 16 bytes of padding per row
+// shared-memory row length in elements: D's 16-byte vectors padded to an
+// odd count (one more vector where D has an even count, two where odd),
+// so that 8 rows at a stride of the row start on 8 distinct bank groups
 template <typename T, int D>
 __host__ __device__ constexpr int row_len() {
-  return D + 16 / static_cast<int>(sizeof(T));
+  return (D * static_cast<int>(sizeof(T)) / 16 + (D * static_cast<int>(sizeof(T)) / 16 % 2 == 0 ? 1 : 2)) *
+         (16 / static_cast<int>(sizeof(T)));
 }
 
 // q rows, then the K and V rings of `ring` rows each
@@ -109,11 +132,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
 // A fragments of a warp's 16 x D query slab, held for the whole key loop
 template <typename T, int D>
 struct QFrag {
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
   uint32_t a[D / 16][4];  // per 16-dim k-step, via ldmatrix
+  uint32_t tail[2];       // the last 8 dims where D % 16 == 8 (m16n8k8)
   __device__ __forceinline__ void load(const T* Qw, int lane) {
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
       ldmatrix_x4(a[ks], Qw + (lane & 15) * row_len<T, D>() + ks * 16 + (lane >> 4) * 8);
+    if constexpr (D % 16 != 0) ldmatrix_x2(tail, Qw + (lane & 15) * row_len<T, D>() + D / 16 * 16);
   }
 };
 // fp32: the slab stays in shared memory and is read and split per chunk;
@@ -154,6 +180,12 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const QFrag<T, D>& qf, 
       mma_16816<T>(s[0], qf.a[ks], kb[0], kb[1]);
       mma_16816<T>(s[1], qf.a[ks], kb[2], kb[3]);
     }
+    if constexpr (D % 16 != 0) {  // dims D - 8 .. D - 1 of keys 0-7 and 8-15
+      uint32_t kb[2];
+      ldmatrix_x2(kb, Kc + (lane & 15) * LD + D / 16 * 16);
+      mma_1688<T>(s[0], qf.tail, kb[0]);
+      mma_1688<T>(s[1], qf.tail, kb[1]);
+    }
   }
 }
 
@@ -185,14 +217,21 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (
       mma_16816<T>(acc[2 * dp], a, vb[0], vb[1]);
       mma_16816<T>(acc[2 * dp + 1], a, vb[2], vb[3]);
     }
+    if constexpr (D % 16 != 0) {  // the last n8 tile, dims D - 8 .. D - 1
+      uint32_t vb[2];
+      ldmatrix_x2_trans(vb, Vc + (lane & 15) * LD + D / 16 * 16);
+      mma_16816<T>(acc[D / 8 - 1], a, vb[0], vb[1]);
+    }
   }
 }
 
-// at most 128 registers a thread: at L = 77 (5 warps) three blocks fit an SM
+// two blocks an SM: up to D = 80 at most 128 registers a thread (at L = 77,
+// 5 warps, three blocks fit), above at most 168
 template <typename T, int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+__global__ void __launch_bounds__(max_warps<D>() * 32, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
                  int L, int ring, float scale_log2, bool causal, bool vec_ok) {
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
   constexpr int LD = row_len<T, D>();
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
@@ -349,13 +388,13 @@ template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int L, float sm_scale, bool causal,
              cudaStream_t stream) {
   const bool vec_ok = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-  // one warp per 16-row slab; a (batch, head)'s slabs spread evenly over blocks of at most MAX_WARPS
+  // one warp per 16-row slab; a (batch, head)'s slabs spread evenly over blocks of at most max_warps
   const int slabs = (L + SLAB - 1) / SLAB;
-  const int blocks = (slabs + MAX_WARPS - 1) / MAX_WARPS;
+  const int blocks = (slabs + max_warps<D>() - 1) / max_warps<D>();
   const int warps = (slabs + blocks - 1) / blocks;
   const int ring = min(2 * BKV, (L + 15) / 16 * 16);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<T, D>(MAX_WARPS, 2 * BKV)));
+                                         static_cast<int>(smem_bytes<T, D>(max_warps<D>(), 2 * BKV)));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = static_cast<float>(static_cast<double>(sm_scale) * 1.4426950408889634);
   dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>(blocks));
@@ -365,8 +404,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int L
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dim 64: the text tower of every config and ViT-S/M/B/L; 80: ViT-H.
-// Any other is refused (the wrapper names the head dims it has).
+// head dim 64: the text tower of every config and ViT-S/M/B/L; 80: ViT-H;
+// 88: ViT-g; 104: ViT-bigG; 112: ViT-e. Any other is refused (the wrapper
+// names the head dims it has).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int L, int head_dim, float sm_scale,
            bool causal, cudaStream_t stream) {
@@ -375,6 +415,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int L, 
       return launch_d<T, 64>(q, k, v, o, BH, L, sm_scale, causal, stream);
     case 80:
       return launch_d<T, 80>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    case 88:
+      return launch_d<T, 88>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    case 104:
+      return launch_d<T, 104>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    case 112:
+      return launch_d<T, 112>(q, k, v, o, BH, L, sm_scale, causal, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,6 +10,7 @@
 //   A 16 x 16, 16-bit: a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..), a[2] = (g, 2t+8..),
 //                      a[3] = (g+8, 2t+8..), two values per 32-bit register.
 //   B 16 x 8, 16-bit:  b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g).
+//   m16n8k8, 16-bit:   A a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..); B b = (k 2t..2t+1, n g).
 //   A 16 x 8, tf32:    a[0] = (g, t), a[1] = (g+8, t), a[2] = (g, t+4), a[3] = (g+8, t+4).
 //   B 8 x 8, tf32:     b[0] = (k t, n g), b[1] = (k t+4, n g).
 #pragma once
@@ -47,6 +48,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// two 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+// (lanes 16..31 are not read)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a @ b, m16n8k8, 16-bit inputs, fp32 accumulators: a depth of 8
+template <typename T>
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[2], uint32_t b);
+template <>
+__device__ __forceinline__ void mma_1688<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+template <>
+__device__ __forceinline__ void mma_1688<__half>(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // d += a @ b, m16n8k16, 16-bit inputs, fp32 accumulators

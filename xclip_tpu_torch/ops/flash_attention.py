@@ -5,10 +5,11 @@ via ``flash_attention`` and ``flash_mha``): online softmax with fp32 running
 max, sum and accumulator, optional causal mask, IO in q's dtype.
 
 - :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-  tensors (head dims 64 and 80, any length, causal or not; both products
+  tensors (head dims 64, 80, 88, 104 and 112: the text towers and every
+  plain ViT from ViT-S to ViT-e; any length, causal or not; both products
   on the tensor cores, fp32 as three tf32 products that keep fp32
   accuracy) and uses the plain version for CPU tensors; nothing else.
-  Other head dims (ViT-g/bigG/e's 88, 104 and 112) raise on the card.
+  Other head dims raise on the card.
 - :func:`flash_attention_plain` is the same function in plain PyTorch, fp32
   inside, used by the CPU path and as the kernel's reference.
 - :class:`FlashAttention` is its autograd Function: the kernel forward and a
@@ -33,7 +34,7 @@ from xclip_tpu_torch.ops import _build
 launches = 0
 backward_calls = 0
 
-HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (64, 80, 88, 104, 112)  # instantiated in csrc/flash_attention.cu
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None):

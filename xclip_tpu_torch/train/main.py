@@ -32,7 +32,15 @@ train.py:train_one_epoch):
     Train Epoch: 0 [256/1024 (25%)] Loss: 5.5452 (5.545) Data (t): 0.012
     Batch (t): 0.431, 1188.0/s, 594.0/s/gpu Scale: 14.286
 
-  with samples and ``/s`` counted over all ranks and ``/s/gpu`` per rank.
+  with samples and ``/s`` counted over all ranks and ``/s/gpu`` per rank;
+- ``--report-to tensorboard`` / ``wandb`` / ``all``: rank 0 writes each log
+  step's six train scalars (``train/loss``, ``train/logit_scale``,
+  ``train/samples_per_second``, ``train/samples_per_second_per_gpu``,
+  ``train/data_time``, ``train/batch_time``) to a ``SummaryWriter`` under
+  ``<logs>/<name>/tensorboard`` (a warning and no writer when tensorboard
+  does not import, as in JAX, main.py:365-373) and to the wandb run
+  (``utils.wandb_logger``; offline files without the package), which also
+  gets the ``val/*`` metrics of each evaluation (main.py:637-640,664-666).
 
 Rank 0 alone writes: the log file (after the "Experiment already exists"
 check, whose outcome every rank follows), the checkpoints and
@@ -73,6 +81,7 @@ from xclip_tpu_torch.train import optim, schedule
 from xclip_tpu_torch.train.evaluate import evaluate
 from xclip_tpu_torch.train.params import parse_args
 from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
+from xclip_tpu_torch.utils.wandb_logger import init_wandb
 
 LATEST_CHECKPOINT_NAME = "epoch_latest.pt"
 # precision flag -> the train step's compute policy, as the JAX trainer maps it
@@ -158,7 +167,8 @@ def _to_device(batch, device: torch.device):
     return [torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in ("images", "texts")]
 
 
-def train_one_epoch(step_fn, loader: DataLoader, epoch: int, args, device: torch.device, info: DistInfo) -> None:
+def train_one_epoch(step_fn, loader: DataLoader, epoch: int, args, device: torch.device, info: DistInfo,
+                    tb_writer, wandb_run) -> None:
     loader.set_epoch(epoch)
     num_batches_per_epoch = loader.num_batches
     samples_per_epoch = len(loader.dataset)
@@ -196,6 +206,19 @@ def train_one_epoch(step_fn, loader: DataLoader, epoch: int, args, device: torch
                 f"{samples_per_second_per_gpu:#g}/s/gpu "
                 f"Scale: {scale_val:.3f}"
             )
+            log_data = [
+                ("train/loss", losses_m.val),
+                ("train/logit_scale", scale_val),
+                ("train/samples_per_second", samples_per_second),
+                ("train/samples_per_second_per_gpu", samples_per_second_per_gpu),
+                ("train/data_time", data_time_m.avg),
+                ("train/batch_time", batch_time_m.avg),
+            ]
+            if tb_writer is not None:
+                for name, val in log_data:
+                    tb_writer.add_scalar(name, val, step)
+            if wandb_run is not None:
+                wandb_run.log(dict(log_data), step=step)
             batch_time_m.reset()
             data_time_m.reset()
     for loss, _ in pending:  # a loader shorter than num_batches: keep every loss
@@ -213,6 +236,17 @@ def _setup_logging(log_file: Optional[str]):
         root.addHandler(h)
     root.setLevel(logging.INFO)
     return handlers
+
+
+def _tensorboard_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` at ``log_dir``; None, with JAX's
+    warning, when tensorboard does not import."""
+    try:
+        from torch.utils.tensorboard.writer import SummaryWriter
+    except ImportError:
+        logging.warning("tensorboard unavailable; skipping --report-to tensorboard")
+        return None
+    return SummaryWriter(log_dir=log_dir)
 
 
 def _append_results(checkpoint_path: str, metrics: Dict) -> None:
@@ -259,15 +293,26 @@ def _main(args, device: torch.device, group) -> int:
             print(f"Error. Experiment already exists. Use --name {args.name}-new to specify a new experiment.")
         return -1
     handlers = _setup_logging(log_path if info.is_master else None)
+    tb_writer = wandb_run = None
+    if info.is_master:  # the reference's is_master writes the reports
+        if "tensorboard" in args.report_to or "all" in args.report_to:
+            tb_writer = _tensorboard_writer(os.path.join(log_base_path, "tensorboard"))
+        if "wandb" in args.report_to or "all" in args.report_to:
+            wandb_run = init_wandb(args, log_base_path)
     try:
-        return _train(args, device, group, info, log_base_path, resume_latest)
+        return _train(args, device, group, info, log_base_path, resume_latest, tb_writer, wandb_run)
     finally:
+        if tb_writer is not None:
+            tb_writer.close()
+        if wandb_run is not None:
+            wandb_run.finish()
         for h in handlers:
             logging.getLogger().removeHandler(h)
             h.close()
 
 
-def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str, resume_latest: bool) -> int:
+def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str, resume_latest: bool,
+           tb_writer, wandb_run) -> int:
     checkpoint_path = os.path.join(log_base_path, "checkpoints")
     if info.is_master:
         os.makedirs(checkpoint_path, exist_ok=True)
@@ -326,9 +371,13 @@ def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str
     if group is not None:
         broadcast_model(model, group)
 
-    def run_evaluation(epoch: int) -> None:
+    def run_evaluation(epoch: int, wandb_step: Optional[int] = None) -> None:
         if info.is_master:
-            _append_results(checkpoint_path, evaluate(model, data, epoch, args, tokenizer))
+            metrics = evaluate(model, data, epoch, args, tokenizer)
+            _append_results(checkpoint_path, metrics)
+            if wandb_run is not None:
+                wandb_run.log({f"val/{k}": v for k, v in metrics.items() if isinstance(v, (int, float))},
+                              step=wandb_step)
         if group is not None:
             dist.barrier(group)
 
@@ -338,10 +387,10 @@ def _train(args, device: torch.device, group, info: DistInfo, log_base_path: str
 
     for epoch in range(start_epoch, args.epochs):
         logging.info(f"Start epoch {epoch}")
-        train_one_epoch(step_fn, data["train"], epoch, args, device, info)
+        train_one_epoch(step_fn, data["train"], epoch, args, device, info, tb_writer, wandb_run)
         completed_epoch = epoch + 1
         if evals:
-            run_evaluation(completed_epoch)
+            run_evaluation(completed_epoch, completed_epoch * data["train"].num_batches)
         if info.is_master and (completed_epoch == args.epochs or (
                 args.save_frequency > 0 and completed_epoch % args.save_frequency == 0)):
             for name in [f"epoch_{completed_epoch}.pt"] + [LATEST_CHECKPOINT_NAME] * args.save_most_recent:

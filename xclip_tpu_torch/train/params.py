@@ -8,7 +8,11 @@ as the JAX trainer does (train/main.py:505-510), so ``--local-loss`` and
 reference's commands. ``--dist-url`` and ``--dist-backend`` reach
 ``parallel.distributed.init_distributed_from_env`` (no backend: NCCL on
 the card, gloo on the CPU). ``--device`` picks the device: ``cuda`` (the
-default, raising without a card) or ``cpu``.
+default, raising without a card) or ``cpu``. ``--report-to`` takes
+``tensorboard``, ``wandb`` or ``all`` (substrings, as JAX reads it):
+rank 0 writes the train scalars to ``<logs>/<name>/tensorboard`` and, for
+wandb, the train and val metrics to wandb or, without the package, to
+``<logs>/<name>/wandb-offline``.
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--resume", type=str, default=None, help="a checkpoint path, or 'latest'")
     parser.add_argument("--save-frequency", type=int, default=1)
     parser.add_argument("--save-most-recent", action="store_true")
+    parser.add_argument("--report-to", type=str, default="",
+                        help="'tensorboard', 'wandb' or 'all' (e.g. 'tensorboard,wandb')")
+    parser.add_argument("--wandb-notes", type=str, default="", help="notes for the wandb run")
+    parser.add_argument("--wandb-project-name", type=str, default="open-clip", help="wandb project")
     parser.add_argument("--log-every-n-steps", type=int, default=100)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
