@@ -18,21 +18,26 @@ Phases, each fatal on failure:
    its bound and list, before the last line, the shapes at which a kernel
    is slower than its library call; then hold the backward of
    each autograd Function (K1, K2, K3, K4) against autograd of its plain
-   version at one shape per ResNet stage (and the text attention), in fp32
-   and bf16, and time both backwards;
+   version at one shape per ResNet stage (and the text attention, and
+   non-causal the ViT-B-32 classifier's 256 x 12 heads at L = 50), in
+   fp32 and bf16, and time both backwards;
    3c. K4 non-causal at the ViT paths' shapes, in fp32, bf16 and fp16,
    against its plain version, timed with the plain version,
    ``F.scaled_dot_product_attention(is_causal=False)`` and its bound:
    the eval batches of 250 at L = 257 of ViT-L-14 and of the towers at
    head dims 80 (ViT-H-14), 88 (ViT-g-14), 104 (ViT-bigG-14) and 112
    (ViT-e-14), ViT-B-16's training microbatch of 128 at L = 197 and at the
-   99 tokens patch dropout 0.5 leaves, and 64 images of ViT-L-14-336 at
-   L = 577;
+   99 tokens patch dropout 0.5 leaves, 64 images of ViT-L-14-336 at
+   L = 577, and the ViT-B-32 classifier's training batch of 256 at L = 50;
+   3d. K3, K1 and K2 in bf16 at the RN50 classifier's training shapes
+   (batch 256, no accumulation: M up to 802,816 rows), against the plain
+   versions, timed with the plain version, the library call and the bound;
 4. drive the evaluation path at full width: a seeded random RN50 saved as an
    open_clip ``.pt``, a seeded synthetic ImageNet/DomainNet tree at 224 px,
-   and ``xclip_tpu_torch.evals.run_lso.main(... --precision bf16)`` (86
-   templates x (1000 + 345) classes, image batches of 250); check
-   results.json, and that every kernel of the path was launched by that run
+   and ``xclip_tpu_torch.evals.run_lso.main(... --precision bf16 --topk 1
+   5 10)`` (86 templates x (1000 + 345) classes, image batches of 250);
+   check results.json (every top-k and macro-F1 key finite, top-1 equal
+   to the accuracy), and that every kernel of the path was launched by that run
    (the counts are zeroed just before it and read just after); time one
    image batch and one text chunk; 4a. hold an 8-image fp32 batch (and a
    few prompts) encoded on the card against the port on the CPU;
@@ -84,6 +89,25 @@ Phases, each fatal on failure:
    the path needs, ``epoch_1.pt`` loads into the eval model; then one fp32
    train step of a tiny ViT (head dim 80, LayerScale) on the card against
    the CPU, as 5b does for RN;
+   5f. the supervised baseline: a seeded CombinedNet tree of 256-px JPEGs
+   (wnid folders from ``data/imagenet_class_index.json``, some folded into
+   DomainNet classes by ``data/in_to_dn_mapping.json``, DomainNet class
+   folders; 1,024 train and 256 val rows);
+   ``xclip_tpu_torch.scripts.train_combined_captions.main`` for
+   ``rn50-clip`` at batch 256, ``--precision 16-mixed`` (bf16), 2 epochs
+   (8 steps): finite logged losses, the checkpoints ``epoch=0-step=0.npz``,
+   ``epoch=1.npz``, ``epoch=2.npz`` and ``last.npz``, the last one loads,
+   exact K1/K2/K3 launches and backward calls (counts zeroed before, read
+   after); one steady-state step timed with CUDA events after two
+   warm-ups (images/s, peak memory) and one profiled; then
+   ``evaluate_domainnet_supervised_lso.main`` over the three ``epoch=*``
+   files on phase 4's DomainNet tree (sketch + real, a ragged tail batch):
+   ``results.json`` keys, ``steps == [0, 1, 2]``, exact K1/K2 launches,
+   and 8 images' fp32 logits on the card against the port on the CPU;
+   then ``vit-b-32-clip`` for one epoch (4 steps): finite losses, exact K4
+   launches and backward calls, ``epoch=1.npz`` loads; one step timed and
+   profiled; last, one fp32 SGD step of a tiny RN classifier on the card
+   against the CPU (loss, every gradient, the BatchNorm statistics);
 6. K5 and the bandwidth probe: hold ``stream_scale`` bit for bit against
    its plain version, into fresh NaN-filled buffers, at the probe's (8192,
    8192), at (1000, 1003), at lengths on the kernel's block and wave
@@ -212,6 +236,16 @@ VIT_CHECK_TOL = 1e-4
 # also rounds P to bf16 before P V (as the JAX einsum path does), a few
 # bf16 ulps that the residual stream carries through 32 to 56 layers
 VIT_TOWER_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+# phase 5f: the supervised baseline (launchers/train-supervised.sh: global
+# batch 256, 16-mixed = bf16), 1345-way RN50 and ViT-B-32 classifiers
+SUP_BATCH = 256
+SUP_TRAIN_ROWS, SUP_VAL_ROWS = 1024, 256  # 4 steps an epoch; one validation batch
+SUP_RN_EPOCHS, SUP_VIT_EPOCHS = 2, 1
+SUP_WNIDS, SUP_FOLDED, SUP_DN_CLASSES = 32, 8, 32  # the tree's 64 class folders: 16 train + 4 val images each
+SUP_VIT = "ViT-B-32"
+SUP_CHECK = 8           # images whose fp32 logits are held card vs CPU
+SUP_CHECK_TOL = 1e-4
+TOPK = (1, 5, 10)       # phase 4's LSO run also reports these
 
 
 def log(msg: str) -> None:
@@ -446,7 +480,8 @@ def vit_attention_shapes(factory) -> list:
     eval batches of ViT-L-14 and of the towers at head dims 80 (ViT-H-14),
     88 (ViT-g-14), 104 (ViT-bigG-14) and 112 (ViT-e-14), ViT-B-16's
     training microbatch at full length and at the length patch dropout
-    leaves, and a 336-px tower."""
+    leaves, a 336-px tower, and the ViT-B-32 classifier's training batch of
+    256 at L = 50."""
     shapes = []
     for role, name, batch, dropout in (
             (f"{VIT_EVAL} eval batch", VIT_EVAL, BATCH, 0.0),
@@ -457,7 +492,8 @@ def vit_attention_shapes(factory) -> list:
             (f"{VIT_TRAIN} training microbatch", VIT_TRAIN, TRAIN_BATCH, 0.0),
             (f"{VIT_TRAIN} training microbatch, patch dropout {VIT_PATCH_DROPOUT}", VIT_TRAIN, TRAIN_BATCH,
              VIT_PATCH_DROPOUT),
-            (f"{VIT_336} eval (336 px)", VIT_336, VIT_336_BATCH, 0.0)):
+            (f"{VIT_336} eval (336 px)", VIT_336, VIT_336_BATCH, 0.0),
+            (f"{SUP_VIT} classifier training batch", SUP_VIT, SUP_BATCH, 0.0)):
         v = factory.get_clip_cfg(name).vision
         patches = v.grid * v.grid
         seq = 1 + (max(1, int(patches * (1.0 - dropout))) if dropout else patches)
@@ -570,11 +606,12 @@ def phase_stats_kernel(torch, fused_conv, rn50, dtypes):
     return records, errs
 
 
-def phase_backward(torch, fused_conv, flash_attention, rn50):
+def phase_backward(torch, fused_conv, flash_attention, rn50, vit_b32):
     """Each Function's backward vs autograd of its plain version: K3 at each
     stage's first conv1, K1 at each downsample, K2 at each stage's first
     conv3 (batch 128), K4 at the text attention of one 128-caption
-    microbatch; fp32 and bf16. Times both backwards (retain_graph, CUDA
+    microbatch and, non-causal, at the ViT-B-32 classifier's batch of 256
+    (L = 50); fp32 and bf16. Times both backwards (retain_graph, CUDA
     events)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     shapes = fused_conv_shapes(rn50.vision, TRAIN_BATCH)
@@ -626,6 +663,12 @@ def phase_backward(torch, fused_conv, flash_attention, rn50):
         one("K4", lambda *t: flash_attention.FlashAttention.apply(*t, True),
             lambda *t: flash_attention.flash_attention_plain(*t, causal=True), [q, k_, v], dname,
             f"B={TRAIN_BATCH} H={heads} L={seq} D={hd} causal")
+        sv = vit_b32.vision  # the ViT-B-32 classifier's training batch, non-causal
+        q, k_, v = (torch.randn(SUP_BATCH, sv.heads, sv.seq_len, sv.width // sv.heads, device="cuda",
+                                generator=gen).to(dt) for _ in range(3))
+        one("K4", lambda *t: flash_attention.FlashAttention.apply(*t, False),
+            lambda *t: flash_attention.flash_attention_plain(*t, causal=False), [q, k_, v], dname,
+            f"B={SUP_BATCH} H={sv.heads} L={sv.seq_len} D={sv.width // sv.heads}")
         torch.cuda.empty_cache()
     return records, errs
 
@@ -663,7 +706,10 @@ def make_tree(root: str, classnames, lso_class_to_idx) -> int:
     return n
 
 
-def check_results(results: dict) -> None:
+def check_results(results: dict, topk=()) -> None:
+    """results.json of one checkpoint on phase 4's tree; with ``topk``, every
+    ``top-{k}-accuracy`` and ``f1-score`` key finite and top-1 equal to the
+    accuracy."""
     acc = results["domainnet-val"]["accuracy"]
     if results["steps"] != [1] or results["domain"] != "sketch":
         fail(f"results.json steps/domain: {results['steps']} {results['domain']}")
@@ -678,6 +724,21 @@ def check_results(results: dict) -> None:
         fail(f"results.json imagenet-val total = {total}")
     if results["domainnet-val"]["num-samples"]["sketch-lso-ood"] != [15]:
         fail(f"num-samples sketch-lso-ood = {results['domainnet-val']['num-samples']['sketch-lso-ood']}")
+    split_keys = [f"{d}-lso-{s}" for d in ("sketch", "real") for s in ("ood", "id")]
+    for k in topk:
+        for split, keys in (("imagenet-val", ["total"]), ("domainnet-val", split_keys)):
+            vals = results[split].get(f"top-{k}-accuracy", {})
+            if set(vals) != set(keys) or not all(len(v) == 1 and math.isfinite(v[0]) for v in vals.values()):
+                fail(f"results.json {split} top-{k}-accuracy = {vals}")
+    if topk:
+        for split, keys in (("imagenet-val", ["total"]), ("domainnet-val", split_keys)):
+            vals = results[split].get("f1-score", {})
+            if set(vals) != set(keys) or not all(len(v) == 1 and math.isfinite(v[0]) for v in vals.values()):
+                fail(f"results.json {split} f1-score = {vals}")
+        top1 = {**results["domainnet-val"]["top-1-accuracy"], **results["imagenet-val"]["top-1-accuracy"]}
+        ref = {**acc, **results["imagenet-val"]["accuracy"]}
+        if any(top1[k] != ref[k] for k in top1):
+            fail(f"top-1 accuracy {top1} differs from the accuracy")
 
 
 def phase_main_path(torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, classnames,
@@ -703,7 +764,7 @@ def phase_main_path(torch, factory, run_lso, fused_conv, flash_attention, tokeni
     argv = ["--model", "RN50", "--domain", "sketch", "--ckpt_files", ckpt, "--out_path", out,
             "--imagenet_path", os.path.join(tree, "imagenet"),
             "--domainnet_path", os.path.join(tree, "domainnet"),
-            "--num_workers", "8", "--precision", "bf16"]
+            "--num_workers", "8", "--precision", "bf16", "--topk", *map(str, TOPK)]
     torch.cuda.synchronize()
     zero_counts(fused_conv, flash_attention)
     t0 = time.perf_counter()
@@ -715,7 +776,11 @@ def phase_main_path(torch, factory, run_lso, fused_conv, flash_attention, tokeni
     if rc != 0:
         fail(f"run_lso.main returned {rc}")
     with open(os.path.join(out, "results.json")) as fh:
-        check_results(json.load(fh))
+        results = json.load(fh)
+    check_results(results, TOPK)
+    log(f"  top-k (k = {list(TOPK)}) and macro F1 keys present and finite; sketch-lso-id top-"
+        + ", top-".join(f"{k} {results['domainnet-val'][f'top-{k}-accuracy']['sketch-lso-id'][0]:.4f}" for k in TOPK)
+        + f", f1 {results['domainnet-val']['f1-score']['sketch-lso-id'][0]:.4f}")
     for f in ("val_pred.npy", "domain_pred.npy", "domain_labels.npy", "domain_ids.npy", "val_labels.npy"):
         if not os.path.exists(os.path.join(out, f)):
             fail(f"{f} not written")
@@ -2054,8 +2119,411 @@ def phase_sae_card_vs_cpu(torch, store):
             "fired_differences": fired_diff, "param_rel_err": param_err, "param_rel_err_own_gradients": own_err}
 
 
+def phase_supervised_kernels(torch, fused_conv, rn50):
+    """Phase 3d: K3, K1 and K2 in bf16 at the RN50 classifier's training
+    shapes (batch 256, no accumulation: layer 1 reaches M = 256 x 56 x 56 =
+    802,816 rows, a 411 MB operand): against the plain versions, timed with
+    the plain version, one library call and the bound. K3 runs every conv1,
+    K1 every downsample, K2 every conv3 of a train-mode forward."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dt, dname = torch.bfloat16, "bf16"
+    shapes = fused_conv_shapes(rn50.vision, SUP_BATCH)
+    unique = {}
+    for role, m, k, c, ident, _ in shapes:
+        kid = {"conv1": "K3", "downsample": "K1", "conv3": "K2"}[role]
+        unique.setdefault((kid, m, k, c), []).append(role)
+    records, errs = [], {}
+    for (kid, m, k, c), roles in unique.items():
+        z = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(k, c, device="cuda", generator=gen) / math.sqrt(k)).to(dt)
+        if kid == "K3":
+            y, s1, s2 = fused_conv.matmul_stats(z, w)
+            ry, r1, r2 = fused_conv.matmul_stats_plain(z, w)
+            torch.cuda.synchronize()
+            ok, err = close(y, ry, TOLERANCE[dname])
+            ok = ok and max(rel_err(s1, r1), rel_err(s2, r2)) <= STATS_TOL
+            del y, s1, s2, ry, r1, r2
+            fns = {"kernel_ms": lambda: fused_conv.matmul_stats(z, w),
+                   "plain_ms": lambda: fused_conv.matmul_stats_plain(z, w),
+                   "library_ms": lambda: (lambda y: (y.sum(dim=0, dtype=torch.float32),
+                                                     (y * y).sum(dim=0, dtype=torch.float32)))(torch.matmul(z, w))}
+            nbytes = (m * k + k * c + m * c) * 2 + 2 * c * 4
+        else:
+            g = torch.rand(c, device="cuda", generator=gen) + 0.5
+            b = torch.randn(c, device="cuda", generator=gen) * 0.1
+            idn = torch.randn(m, c, device="cuda", generator=gen).to(dt) if kid == "K2" else None
+            relu = kid == "K2"
+            got = fused_conv.matmul_affine_act(z, w, g, b, idn, relu=relu)
+            ok, err = close(got, fused_conv.matmul_affine_act_plain(z, w, g, b, idn, relu=relu), TOLERANCE[dname])
+            del got
+
+            def library(z=z, w=w, g=g, b=b, idn=idn, relu=relu):
+                y = torch.matmul(z, w)
+                y.mul_(g.to(y.dtype)).add_(b.to(y.dtype))
+                if idn is not None:
+                    y.add_(idn)
+                return y.relu_() if relu else y
+
+            fns = {"kernel_ms": lambda: fused_conv.matmul_affine_act(z, w, g, b, idn, relu=relu),
+                   "plain_ms": lambda: fused_conv.matmul_affine_act_plain(z, w, g, b, idn, relu=relu),
+                   "library_ms": library}
+            nbytes = (m * k + k * c + m * c * (2 if idn is not None else 1)) * 2 + 2 * c * 4
+        errs[kid] = max(errs.get(kid, 0.0), err)
+        if not ok:
+            fail(f"{kid} bf16 at the classifier's shape M={m} K={k} C={c}: max_abs_err {err}")
+        rec = {"kernel": kid, "dtype": dname, "M": m, "K": k, "C": c, "count_per_batch": len(roles),
+               "max_abs_err": err, **{key: time_ms(fn) for key, fn in fns.items()}}
+        bound(rec, 2.0 * m * k * c, nbytes, dname)
+        share(rec)
+        records.append(rec)
+        log(f"  {kid} bf16 M={m} K={k} C={c} x{len(roles)} (classifier, batch {SUP_BATCH}): "
+            f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) share_of_bound={rec['share_of_bound']:.3f} "
+            f"max_abs_err={err:.3g}")
+        del z, w
+        torch.cuda.empty_cache()
+    return records, errs
+
+
+def make_combined_tree(root: str, seed: int = 0):
+    """Seeded CombinedNet tree of 256-px JPEGs for the supervised baseline:
+    wnid folders from ``data/imagenet_class_index.json`` (SUP_FOLDED of them
+    classes that ``data/in_to_dn_mapping.json`` folds into DomainNet
+    classes), DomainNet class folders from the mapping's keys; a 1,024-row
+    train TSV and a 256-row val TSV. Returns (train TSV, val TSV, labels of
+    the folders by the mapping)."""
+    import numpy as np
+    from PIL import Image
+
+    with open(os.path.join(REPO, "data", "imagenet_class_index.json")) as fh:
+        index = json.load(fh)
+    with open(os.path.join(REPO, "data", "in_to_dn_mapping.json")) as fh:
+        mapping = json.load(fh)
+    folded = sorted({i for v in mapping.values() if v for i in v})
+    kept = [i for i in range(1000) if i not in set(folded)]
+    rng = np.random.RandomState(seed)
+    wnids = ([index[str(i)][0] for i in rng.choice(kept, SUP_WNIDS - SUP_FOLDED, replace=False)]
+             + [index[str(i)][0] for i in rng.choice(folded, SUP_FOLDED, replace=False)])
+    dn = [c.replace(" ", "_") for c in rng.choice(list(mapping), SUP_DN_CLASSES, replace=False)]
+    folders = wnids + dn
+    per_train, per_val = SUP_TRAIN_ROWS // len(folders), SUP_VAL_ROWS // len(folders)
+    rows = {"train": [], "val": []}
+    for split, per in (("train", per_train), ("val", per_val)):
+        for folder in folders:
+            for j in range(per):
+                path = os.path.join(root, split, folder, f"{j}.jpg")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                Image.fromarray(rng.randint(0, 256, (256, 256, 3), np.uint8)).save(path, quality=90)
+                rows[split].append(f"{path}\ta photo.")
+    out = []
+    for split in ("train", "val"):
+        order = rng.permutation(len(rows[split]))
+        tsv = os.path.join(root, f"{split}.tsv")
+        with open(tsv, "w") as fh:
+            fh.write("filepath\ttitle\n" + "".join(rows[split][i] + "\n" for i in order))
+        out.append(tsv)
+    return out[0], out[1]
+
+
+def supervised_path_counts(cfg, steps: int, val_batches: int, eval_batches: int = 0) -> dict:
+    """Exact launches and backward calls of the supervised path: each
+    training step's train-mode forward (K3 every conv1, K1 every downsample,
+    K2 every conv3; K4 every ViT layer) and each Function's backward once,
+    then the eval-mode forward of each validation batch and each batch of
+    the supervised LSO evaluation (K1 every conv1 and downsample, K2 every
+    conv3; K4 every layer)."""
+    if isinstance(cfg.vision.layers, (list, tuple)):
+        blocks, stages = sum(cfg.vision.layers), len(cfg.vision.layers)
+        fwd = {"K1": stages, "K2": blocks, "K3": blocks, "K4": 0}
+        evals = {"K1": blocks + stages, "K2": blocks, "K3": 0, "K4": 0}
+        bwd = {"K1/K2 backward": blocks + stages, "K3 backward": blocks, "K4 backward": 0}
+    else:
+        layers = cfg.vision.layers
+        fwd = {"K1": 0, "K2": 0, "K3": 0, "K4": layers}
+        evals = dict(fwd)
+        bwd = {"K1/K2 backward": 0, "K3 backward": 0, "K4 backward": layers}
+    counts = {k: steps * fwd[k] + (val_batches + eval_batches) * evals[k] for k in fwd}
+    counts.update({k: steps * v for k, v in bwd.items()})
+    return counts
+
+
+class LogLines:
+    """Collects the log lines of a CLI that installs its own root handlers
+    (``utils.meters.setup_logging``) and puts chip_smoke's handlers back."""
+
+    def __init__(self, module):
+        self.module, self.lines = module, []
+
+    def __enter__(self):
+        import logging as _logging
+
+        self.saved = list(_logging.root.handlers), _logging.root.level
+        real = self.module.setup_logging
+        lines = self.lines
+
+        class Collect(_logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        def setup(*a, **kw):
+            handlers = real(*a, **kw) + [Collect()]
+            _logging.root.addHandler(handlers[-1])
+            return handlers
+
+        self.module.setup_logging = setup
+        self.real = real
+        return self
+
+    def __exit__(self, *exc):
+        import logging as _logging
+
+        self.module.setup_logging = self.real
+        for h in list(_logging.root.handlers):
+            _logging.root.removeHandler(h)
+        for h in self.saved[0]:
+            _logging.root.addHandler(h)
+        _logging.root.setLevel(self.saved[1])
+        return False
+
+
+def run_supervised_training(torch, fused_conv, flash_attention, sup_cli, model: str, epochs: int, tsvs, ws: str):
+    """``train_combined_captions.main`` for ``model`` at batch 256, bf16
+    (``--precision 16-mixed``), checkpoints every epoch; returns (counts,
+    wall seconds, the CLI's log lines, its checkpoint directory)."""
+    argv = ["--model", model, "--train_index_path", tsvs[0], "--val_index_path", tsvs[1],
+            "--in_class_index_path", os.path.join(REPO, "data", "imagenet_class_index.json"),
+            "--class_mapping_path", os.path.join(REPO, "data", "in_to_dn_mapping.json"),
+            "--experiment_name", model, "--batch_size", str(SUP_BATCH), "--max_epochs", str(epochs),
+            "--save_epochs", "1", "--precision", "16-mixed", "--num_workers", "16", "--seed", "0",
+            "--ws_path", ws, "--device", "cuda"]
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    with LogLines(sup_cli) as logs:
+        rc = sup_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = train_counts(fused_conv, flash_attention)
+    if rc != 0:
+        fail(f"train_combined_captions.main {model} returned {rc}")
+    return counts, wall, logs.lines, os.path.join(ws, "checkpoints", model)
+
+
+def check_supervised_logs(lines, epochs: int, model: str) -> list:
+    """The CLI's step lines (step 0 of each epoch at 4 steps an epoch) with
+    finite losses and img/s, and one validation line per epoch; returns the
+    logged losses."""
+    steps = [ln for ln in lines if " step " in ln and ln.endswith("img/s)")]
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in steps]
+    done = [ln for ln in lines if " done: val_loss " in ln]
+    if len(steps) != epochs or len(done) != epochs or not all(math.isfinite(v) for v in losses):
+        fail(f"{model}: expected {epochs} step and validation log lines with finite losses, found {steps} {done}")
+    for ln in done:
+        if not math.isfinite(float(ln.split("val_loss ")[1].split()[0])):
+            fail(f"{model}: non-finite validation loss: {ln}")
+    return losses
+
+
+def phase_supervised(torch, factory, fused_conv, flash_attention, card: str):
+    """Phase 5f: the supervised baseline at full width (see the module
+    docstring); returns (counts by run, report)."""
+    from xclip_tpu_torch.scripts import evaluate_domainnet_supervised_lso as sup_eval
+    from xclip_tpu_torch.scripts import train_combined_captions as sup_cli
+    from xclip_tpu_torch.train import learner
+
+    rn50, vit = factory.get_clip_cfg("RN50"), factory.get_clip_cfg(SUP_VIT)
+    t0 = time.perf_counter()
+    tsvs = make_combined_tree(os.path.join(SCRATCH, "combined"))
+    log(f"  CombinedNet tree: {SUP_TRAIN_ROWS} + {SUP_VAL_ROWS} JPEGs (256 px) in {time.perf_counter() - t0:.1f} s")
+    ws = os.path.join(SCRATCH, "supervised")
+    report, counts = {}, {}
+    steps = SUP_TRAIN_ROWS // SUP_BATCH
+
+    # RN50 classifier: 2 epochs of 4 steps
+    c, wall, lines, ckpt_dir = run_supervised_training(torch, fused_conv, flash_attention, sup_cli, "rn50-clip",
+                                                       SUP_RN_EPOCHS, tsvs, ws)
+    losses = check_supervised_logs(lines, SUP_RN_EPOCHS, "rn50-clip")
+    names = sorted(os.listdir(ckpt_dir))
+    want_names = sorted(["epoch=0-step=0.npz", "last.npz"] + [f"epoch={e}.npz" for e in range(1, SUP_RN_EPOCHS + 1)])
+    want = supervised_path_counts(rn50, steps * SUP_RN_EPOCHS, SUP_RN_EPOCHS)
+    log(f"  train_combined_captions rn50-clip, batch {SUP_BATCH}, bf16: {steps * SUP_RN_EPOCHS} steps in {wall:.1f} s "
+        f"incl. model and loader start; logged losses {losses}; checkpoints {names}")
+    log(f"  launches {c} (expected {want})")
+    if names != want_names:
+        fail(f"rn50-clip checkpoints {names}, expected {want_names}")
+    if c != want:
+        fail(f"supervised RN50 counts {c} differ from the path's {want}")
+    model = learner.create_classifier(learner.ClassifierCfg(model="rn50-clip"), device="cuda")
+    extras = learner.load_classifier(os.path.join(ckpt_dir, "last.npz"), model)
+    if extras != {"epoch": SUP_RN_EPOCHS}:
+        fail(f"last.npz extras {extras}")
+    counts["train_supervised_rn50"] = c
+    report["rn50"] = {"wall_s": wall, "logged_losses": losses, "log_lines": lines, "checkpoints": names}
+
+    # one steady-state step, timed and profiled
+    report["rn50"]["steady_state"] = supervised_step_timing(torch, learner, "rn50-clip", rn50)
+
+    # the supervised LSO evaluation over the three epoch=*.npz files, phase 4's DomainNet tree
+    ckpts = [os.path.join(ckpt_dir, n) for n in names if n.startswith("epoch=")]
+    out = os.path.join(ws, "lso-eval-sketch")
+    n_dn = 2 * N_DOMAINNET_CLASSES
+    eval_batches = len(ckpts) * math.ceil(n_dn / BATCH)
+    argv = ["--model", "rn50-clip", "--domain", "sketch", "--ckpt_files", *reversed(ckpts), "--out_path", out,
+            "--domainnet_path", os.path.join(SCRATCH, "tree", "domainnet"), "--num_workers", "8", "--device", "cuda"]
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    rc = sup_eval.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = train_counts(fused_conv, flash_attention)
+    want = supervised_path_counts(rn50, 0, 0, eval_batches)
+    with open(os.path.join(out, "results.json")) as fh:
+        results = json.load(fh)
+    acc = results["domainnet-val"]["accuracy"]
+    log(f"  evaluate_domainnet_supervised_lso: {len(ckpts)} checkpoints x {n_dn} images (batches of {BATCH}, "
+        f"ragged tail {n_dn % BATCH}) in {wall:.2f} s; steps {results['steps']}; sketch-lso-id "
+        f"{acc['sketch-lso-id']}; launches {c} (expected {want})")
+    if rc != 0 or results["steps"] != [0, 1, 2] or results["domain"] != "sketch" or results["imagenet-val"] != {
+            "accuracy": {}}:
+        fail(f"supervised evaluation: rc {rc}, steps {results['steps']}, imagenet-val {results['imagenet-val']}")
+    for key in ("sketch-lso-ood", "sketch-lso-id", "real-lso-ood", "real-lso-id", "sketch-lso-unweighted-id",
+                "real-lso-unweighted-ood", "sketch-banana-ood"):
+        if len(acc.get(key, [])) != 3 or not all(math.isfinite(v) and 0 <= v <= 1 for v in acc[key]):
+            fail(f"supervised results.json accuracy[{key!r}] = {acc.get(key)}")
+    if c != want:
+        fail(f"supervised evaluation counts {c} differ from the path's {want}")
+    counts["eval_supervised_rn50"] = c
+
+    # 8 images' fp32 logits of the last checkpoint, card vs CPU
+    cpu = learner.create_classifier(learner.ClassifierCfg(model="rn50-clip"), device="cpu")
+    learner.load_classifier(ckpts[-1], cpu)
+    learner.load_classifier(ckpts[-1], model)
+    x = torch.randn(SUP_CHECK, rn50.image_size, rn50.image_size, 3, generator=torch.Generator().manual_seed(16))
+    with torch.no_grad():
+        got, ref = model(x.cuda()).cpu(), cpu(x)
+    ok, err = close(got, ref, SUP_CHECK_TOL)
+    log(f"  fp32 logits of {SUP_CHECK} images, {os.path.basename(ckpts[-1])}, card vs CPU: max_abs_err {err:.3g} "
+        f"(largest |logit| {float(ref.abs().max()):.3g}; tolerance {SUP_CHECK_TOL} + {SUP_CHECK_TOL} |ref|)")
+    if not ok:
+        fail("supervised classifier: card and CPU disagree in fp32")
+    report["eval"] = {"wall_s": wall, "results": results, "card_vs_cpu_max_abs_err": err}
+    del model, cpu
+    torch.cuda.empty_cache()
+
+    # ViT-B-32 classifier: 1 epoch of 4 steps
+    c, wall, lines, ckpt_dir = run_supervised_training(torch, fused_conv, flash_attention, sup_cli, "vit-b-32-clip",
+                                                       SUP_VIT_EPOCHS, tsvs, ws)
+    losses = check_supervised_logs(lines, SUP_VIT_EPOCHS, "vit-b-32-clip")
+    want = supervised_path_counts(vit, steps * SUP_VIT_EPOCHS, SUP_VIT_EPOCHS)
+    log(f"  train_combined_captions vit-b-32-clip, batch {SUP_BATCH}, bf16: {steps} steps in {wall:.1f} s; logged "
+        f"losses {losses}; launches {c} (expected {want})")
+    if c != want:
+        fail(f"supervised ViT-B-32 counts {c} differ from the path's {want}")
+    model = learner.create_classifier(learner.ClassifierCfg(model="vit-b-32-clip"), device="cuda")
+    learner.load_classifier(os.path.join(ckpt_dir, f"epoch={SUP_VIT_EPOCHS}.npz"), model)
+    with torch.no_grad():
+        logits = model(torch.randn(4, vit.image_size, vit.image_size, 3, device="cuda"), torch.bfloat16)
+    if logits.shape != (4, 1345) or not torch_all_finite(logits):
+        fail(f"vit-b-32-clip epoch={SUP_VIT_EPOCHS}.npz does not give finite logits")
+    del model
+    torch.cuda.empty_cache()
+    counts["train_supervised_vit_b32"] = c
+    report["vit_b32"] = {"wall_s": wall, "logged_losses": losses, "log_lines": lines,
+                         "steady_state": supervised_step_timing(torch, learner, "vit-b-32-clip", vit)}
+
+    # one fp32 SGD step of a tiny RN classifier, card vs CPU
+    report["tiny_card_vs_cpu"] = supervised_card_vs_cpu(torch, factory, learner)
+    report["card"] = card
+    return counts, report
+
+
+def supervised_step_timing(torch, learner, model: str, cfg) -> dict:
+    """One steady-state bf16 step of the 1345-way classifier at batch 256 on
+    fixed device batches: CUDA events after two warm-up steps, its images/s
+    and peak memory, then torch.profiler over one more step (top device
+    ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    clf = learner.create_classifier(learner.ClassifierCfg(model=model), device="cuda").train()
+    step, _ = learner.make_classifier_train_step(clf, steps_per_epoch=4, precision="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    images = torch.randint(0, 256, (SUP_BATCH, cfg.image_size, cfg.image_size, 3), device="cuda",
+                           dtype=torch.uint8, generator=gen)
+    labels = torch.randint(0, 1345, (SUP_BATCH,), device="cuda", generator=gen)
+    for _ in range(2):
+        step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    m = step(images, labels)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(float(m["loss"])):
+        fail(f"{model}: non-finite loss in the timed step")
+    log(f"  {model} steady-state step, batch {SUP_BATCH}, bf16: {step_ms:.1f} ms (CUDA events; host {host_ms:.1f} ms), "
+        f"{SUP_BATCH / step_ms * 1e3:.1f} img/s, peak memory {peak_gb:.2f} GB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(images, labels)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    log(f"  profiler: device time over one step: {total:.1f} ms ({100 * total / step_ms:.1f} % of the step)")
+    for key, ms, count in rows[:12]:
+        log(f"    {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f} % x{count:<5d} {key[:110]}")
+    del clf, step, images
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "host_step_ms": host_ms, "images_per_s": SUP_BATCH / step_ms * 1e3,
+            "peak_memory_gb": peak_gb, "profiled_device_ms": total,
+            "top": [{"kernel": k, "ms": ms, "count": c} for k, ms, c in rows[:12]]}
+
+
+def supervised_card_vs_cpu(torch, factory, learner) -> dict:
+    """One fp32 SGD step of the tiny RN classifier (phase 5b's config, 1345
+    classes, 16 images) on the card and on the CPU: loss, every gradient (of
+    its largest element, floored at 1e-4) and the BatchNorm running
+    statistics after the step."""
+    import numpy as np
+
+    factory._MODEL_CONFIGS[TINY_RN] = TINY_RN_CFG
+    cls = learner.ClassifierCfg
+    saved = cls.backbone_name, cls.feature_dim
+    cls.backbone_name = property(lambda self: TINY_RN)
+    cls.feature_dim = property(lambda self: TINY_RN_CFG["embed_dim"])
+    try:
+        images, _ = tiny_batch(torch)
+        labels = torch.from_numpy(np.random.RandomState(1).randint(0, 1345, len(images)).astype(np.int32))
+        results = []
+        for device in ("cpu", "cuda"):
+            model = learner.create_classifier(cls(lr=1e-3), device=device).train()
+            step, opt = learner.make_classifier_train_step(model, steps_per_epoch=1, precision="fp32")
+            grads = {}  # read before the update: CUDA's foreach Nesterov SGD adds the momentum into .grad
+            opt.register_step_pre_hook(lambda *_, m=model, g=grads: g.update(
+                {n: p.grad.float().cpu() for n, p in m.named_parameters()}))
+            m = step(images.to(device), labels.to(device))
+            results.append((float(m["loss"]), grads, {n: b.cpu() for n, b in model.named_buffers() if "running" in n}))
+    finally:
+        cls.backbone_name, cls.feature_dim = saved
+    (loss_cpu, g_cpu, b_cpu), (loss_gpu, g_gpu, b_gpu) = results
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = max(float((g_gpu[n] - g_cpu[n]).abs().max()) / max(float(g_cpu[n].abs().max()), 1e-4) for n in g_cpu)
+    bn_err = max(float((b_gpu[n] - b_cpu[n]).abs().max()) / max(float(b_cpu[n].abs().max()), 1e-4) for n in b_cpu)
+    log(f"  fp32 tiny RN classifier step, card vs CPU: loss rel err {loss_err:.3g}, worst gradient rel err "
+        f"{grad_err:.3g}, worst running-statistic rel err {bn_err:.3g} (tolerance {TRAIN_CHECK_TOL})")
+    if not math.isfinite(loss_gpu) or max(loss_err, grad_err, bn_err) > TRAIN_CHECK_TOL:
+        fail("card and CPU disagree on the fp32 classifier step")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "bn_rel_err": bn_err}
+
+
 def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bwd_records, bwd_errs,
-              text_layers: int, sae_counts, k5, ddp_counts, vit):
+              text_layers: int, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs):
     """One entry per kernel. K1/K2 are timed over one 250-image eval batch
     (the sum over its launches of the per-shape times), K4 over one full
     text chunk (one launch per text block), K3 over one 128-image training
@@ -2068,7 +2536,11 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
     the probe's two runs. K4's ``vit`` holds its non-causal shapes of the
     ViT paths (phase 3c, head dims 64 to 112), each timed per launch, and
     the launches of phases 4b (ViT-L-14, ViT-bigG-14), 4c (the ViT-H, -g
-    and -e towers) and 5e are in its ``launches_by_path``.
+    and -e towers) and 5e are in its ``launches_by_path``. The supervised
+    baseline's runs (phase 5f: the RN50 and ViT-B-32 classifiers'
+    training, the supervised LSO evaluation) are in ``launches_by_path``
+    too; K1/K2/K3's ``classifier_train_bf16`` holds phase 3d's times summed
+    over one 256-image train-mode forward of the RN50 classifier.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -2114,11 +2586,13 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                    **{f"lso_eval_{name}": c.get(kid, 0) for name, c in vit["lso_counts"].items()},
                    **{f"tower_{name}": (r["bf16"]["launches"] + r["fp32"]["launches"]) if kid == "K4" else 0
                       for name, r in vit["towers"].items()},
-                   "train_vit_b16": vit["train_counts"][kid]}
+                   "train_vit_b16": vit["train_counts"][kid],
+                   **{name: c[kid] for name, c in sup_counts.items()}}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
             "route": "plain PyTorch in a torch.autograd.Function (no backward kernel yet)",
-            "calls_in_train": train_counts_[bwd_key] + ddp_counts[bwd_key] + vit["train_counts"][bwd_key],
+            "calls_in_train": (train_counts_[bwd_key] + ddp_counts[bwd_key] + vit["train_counts"][bwd_key]
+                               + sum(c[bwd_key] for c in sup_counts.values())),
             "rel_err": bwd_errs[kid],
             "shapes": sorted({r["shape"] for r in bwd}),
             "ms_bf16": sum(r["backward_ms"] for r in bwd if r["dtype"] == "bf16"),
@@ -2139,6 +2613,15 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                        "backward: agrees with autograd of plain in fp32/bf16, ran in training"),
             "by_dtype": by_dtype, "backward": backward,
         }
+        sup = [r for r in sup_records if r["kernel"] == kid]
+        if sup:  # the RN50 classifier's batch-256 training shapes, bf16
+            entry["classifier_train_bf16"] = {
+                **{key: sum(r[key] * r["count_per_batch"] for r in sup)
+                   for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+                "launches_per": sum(r["count_per_batch"] for r in sup), "max_abs_err": sup_errs[kid],
+                "shapes": [{k: r[k] for k in ("M", "K", "C", "count_per_batch", "kernel_ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by", "share_of_bound", "max_abs_err")} for r in sup]}
+            entry["slower_than_library"] += slower_list(sup)
         if kid == "K4":  # the ViT paths' non-causal shapes, per launch
             entry["slower_than_library"] += slower_list(vit["records"])
             entry["vit"] = {"max_abs_err": vit["errs"], "shapes": [
@@ -2212,8 +2695,10 @@ def main() -> int:
         report, errs = phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes)
 
         stats_records, stats_errs = phase_stats_kernel(torch, fused_conv, rn50, dtypes)
+        log(f"[phase 3d] K3, K1, K2 in bf16 at the RN50 classifier's training shapes (batch {SUP_BATCH})")
+        sup_records, sup_errs = phase_supervised_kernels(torch, fused_conv, rn50)
         log("[phase 3b] each Function's backward vs autograd of its plain version (fp32, bf16)")
-        bwd_records, bwd_errs = phase_backward(torch, fused_conv, flash_attention, rn50)
+        bwd_records, bwd_errs = phase_backward(torch, fused_conv, flash_attention, rn50, factory.get_clip_cfg(SUP_VIT))
         log("[phase 3c] K4 non-causal at the ViT paths' shapes (fp32, bf16, fp16)")
         vit = {}
         vit["records"], vit["errs"] = phase_vit_attention(torch, flash_attention, factory, dtypes)
@@ -2254,6 +2739,10 @@ def main() -> int:
             f"checkpointing, patch dropout {VIT_PATCH_DROPOUT}; tiny ViT fp32 step card vs CPU")
         vit["train_counts"], vit["train"] = phase_vit_train(torch, factory, train_main, fused_conv, flash_attention)
         phase_s["vit_train"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[phase 5f] supervised baseline: RN50 and {SUP_VIT} 1345-way classifiers at batch {SUP_BATCH}, bf16; "
+            "the supervised LSO evaluation; a tiny fp32 classifier step card vs CPU")
+        sup_counts, supervised = phase_supervised(torch, factory, fused_conv, flash_attention, card)
+        phase_s["supervised"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         log("[phase 6] K5 stream_scale vs plain, and the bandwidth probe")
         k5 = phase_stream_scale(torch, stream_scale, probe_bandwidth)
@@ -2267,13 +2756,14 @@ def main() -> int:
         phase_s["sae"] = time.perf_counter() - t_start - sum(phase_s.values())
 
         kernels = summarize(report, errs, counts, tcounts, stats_records, stats_errs, bwd_records, bwd_errs,
-                            rn50.text.layers, sae_counts, k5, ddp_counts, vit)
+                            rn50.text.layers, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs)
         detail = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                   "cuda": torch.version.cuda, "build_s": build_s, "kernels": kernels, "report": report,
                   "matmul_stats": stats_records, "backward": bwd_records, "main_path": rates,
                   "launches": counts, "card_vs_cpu": cross, "training": training, "train_launches": tcounts,
                   "ddp_launches": ddp_counts, "vit": vit,
-                  "stream_scale": k5, "sae": sae, "sae_launches": sae_counts,
+                  "stream_scale": k5, "sae": sae, "sae_launches": sae_counts, "supervised": supervised,
+                  "supervised_launches": sup_counts, "classifier_shapes": sup_records,
                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
         with open(REPORT, "w") as fh:
             json.dump(detail, fh, indent=1)

@@ -110,11 +110,12 @@ def test_vit_attention_shapes():
     """Phase 3c's K4 shapes (B, H, L, D): the eval batches of 250 at 257
     tokens of ViT-L-14 (head dim 64), ViT-H-14 (80), ViT-g-14 (88),
     ViT-bigG-14 (104) and ViT-e-14 (112), ViT-B-16's training microbatch
-    at 197 tokens and at the 1 + 98 that patch dropout 0.5 keeps, and 64
-    images of ViT-L-14-336 at 577 tokens."""
+    at 197 tokens and at the 1 + 98 that patch dropout 0.5 keeps, 64
+    images of ViT-L-14-336 at 577 tokens, and the ViT-B-32 classifier's
+    training batch of 256 at 50 tokens."""
     assert [s[1:] for s in chip_smoke.vit_attention_shapes(factory)] == [
         (250, 16, 257, 64), (250, 16, 257, 80), (250, 16, 257, 88), (250, 16, 257, 104), (250, 16, 257, 112),
-        (128, 12, 197, 64), (128, 12, 99, 64), (64, 16, 577, 64)]
+        (128, 12, 197, 64), (128, 12, 99, 64), (64, 16, 577, 64), (256, 12, 50, 64)]
 
 
 def test_vit_lso_counts_of_vit_l14():
@@ -155,3 +156,69 @@ def test_vit_train_counts_of_vit_b16():
     assert chip_smoke.VIT_TRAIN_STEPS == 4
     assert chip_smoke.vit_train_counts(cfg, chip_smoke.VIT_TRAIN_STEPS, chip_smoke.TRAIN_ACCUM) == {
         "K1": 0, "K2": 0, "K3": 0, "K4": 576, "K1/K2 backward": 0, "K3 backward": 0, "K4 backward": 192}
+
+
+def test_supervised_path_counts():
+    """Phase 5f's exact counts. RN50 classifier, 8 steps at batch 256 and 2
+    validation batches: per step K3 at the 16 conv1s, K1 at the 4
+    downsamples, K2 at the 16 conv3s and each Function's backward once; per
+    eval-mode batch K1 at the 20 conv1s and downsamples, K2 at the 16
+    conv3s. The supervised evaluation: 3 checkpoints x 3 batches (690
+    DomainNet images in 250s). ViT-B-32: 4 steps and 1 validation batch
+    through 12 layers."""
+    rn50, vit = factory.get_clip_cfg("RN50"), factory.get_clip_cfg(chip_smoke.SUP_VIT)
+    assert chip_smoke.SUP_TRAIN_ROWS // chip_smoke.SUP_BATCH == 4
+    assert chip_smoke.supervised_path_counts(rn50, 8, 2) == {
+        "K1": 8 * 4 + 2 * 20, "K2": 8 * 16 + 2 * 16, "K3": 8 * 16, "K4": 0,
+        "K1/K2 backward": 8 * 20, "K3 backward": 8 * 16, "K4 backward": 0}
+    assert chip_smoke.supervised_path_counts(rn50, 0, 0, 9) == {
+        "K1": 180, "K2": 144, "K3": 0, "K4": 0, "K1/K2 backward": 0, "K3 backward": 0, "K4 backward": 0}
+    assert chip_smoke.supervised_path_counts(vit, 4, 1) == {
+        "K1": 0, "K2": 0, "K3": 0, "K4": 60, "K1/K2 backward": 0, "K3 backward": 0, "K4 backward": 48}
+
+
+def test_combined_tree_labels(tmp_path, monkeypatch):
+    """Phase 5f's CombinedNet tree (at a smaller size): every row's folder is
+    a wnid or a DomainNet class of the real mapping files (CombinedNet
+    refuses anything else), the folded wnids land in the DomainNet range,
+    both TSVs have their row counts and the same labels."""
+    from xclip_tpu_torch.data.datasets import CombinedNet
+
+    monkeypatch.setattr(chip_smoke, "SUP_TRAIN_ROWS", 32)
+    monkeypatch.setattr(chip_smoke, "SUP_VAL_ROWS", 16)
+    monkeypatch.setattr(chip_smoke, "SUP_WNIDS", 6)
+    monkeypatch.setattr(chip_smoke, "SUP_FOLDED", 2)
+    monkeypatch.setattr(chip_smoke, "SUP_DN_CLASSES", 2)
+    monkeypatch.setattr(chip_smoke, "REPO", str(ROOT))
+    train, val = chip_smoke.make_combined_tree(str(tmp_path))
+    index, mapping = ROOT / "data" / "imagenet_class_index.json", ROOT / "data" / "in_to_dn_mapping.json"
+    ds = {name: CombinedNet(tsv, str(index), str(mapping), transform=None) for name, tsv in (("train", train),
+                                                                                           ("val", val))}
+    assert (len(ds["train"]), len(ds["val"])) == (32, 16)
+    labels = sorted({lab for _, lab in ds["train"].samples})
+    # 8 folders; a folded wnid may land on a chosen DomainNet class's label
+    assert 6 <= len(labels) <= 8 and sum(lab < 1000 for lab in labels) == 4
+    assert {lab for _, lab in ds["val"].samples} == set(labels)
+
+
+def test_check_results_reads_the_topk_keys():
+    """Phase 4's results.json with ``--topk``: every top-k and F1 key, top-1
+    equal to the accuracy; a missing key or a top-1 that differs fails."""
+    splits = [f"{d}-lso-{s}" for d in ("sketch", "real") for s in ("ood", "id")]
+    acc = {k: [0.5] for k in splits + ["sketch-lso-unweighted-id", "sketch-lso-unweighted-ood", "sketch-banana-ood",
+                                       "real-traffic light-ood"]}
+    results = {"steps": [1], "domain": "sketch",
+               "imagenet-val": {"accuracy": {"total": [0.25]}, "f1-score": {"total": [0.1]},
+                                **{f"top-{k}-accuracy": {"total": [0.25 if k == 1 else 0.75]} for k in (1, 5, 10)}},
+               "domainnet-val": {"accuracy": acc, "num-samples": {"sketch-lso-ood": [15]},
+                                 "f1-score": {k: [0.2] for k in splits},
+                                 **{f"top-{k}-accuracy": {s: [0.5 if k == 1 else 0.9] for s in splits}
+                                    for k in (1, 5, 10)}}}
+    chip_smoke.check_results(results, (1, 5, 10))
+    chip_smoke.check_results(results)
+    results["domainnet-val"]["top-1-accuracy"]["real-lso-id"] = [0.4]
+    with pytest.raises(SystemExit, match="top-1"):
+        chip_smoke.check_results(results, (1, 5, 10))
+    del results["imagenet-val"]["f1-score"]
+    with pytest.raises(SystemExit, match="f1-score"):
+        chip_smoke.check_results(results, (1, 5, 10))

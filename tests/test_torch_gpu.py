@@ -654,3 +654,70 @@ def test_gather_with_grad_backward_at_world_one(nccl_group):
     before = [t.clone() for t in ts]
     all_reduce_mean_(ts, nccl_group)
     assert all(torch.equal(a, b) for a, b in zip(ts, before))
+
+
+# --- the supervised classifier ---------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_classifier_shape_forward_and_backward(cuda, dt):
+    """K4 non-causal at the ViT-B-32 classifier's L = 50, D = 64 (one ragged
+    query block per (batch, head): 4 slabs, the last with 2 rows): the
+    forward against the plain version and the Function's backward against
+    autograd of the plain version, 8 x 12 heads."""
+    gen = torch.Generator().manual_seed(50)
+    q, k, v = (torch.randn(8, 12, 50, 64, generator=gen).to(dt).cuda() for _ in range(3))
+    before = flash_attention.launches, flash_attention.backward_calls
+    got = flash_attention.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), flash_attention.flash_attention_plain(q, k, v).float(),
+                               atol=TOL[dt], rtol=TOL[dt])
+    if dt != torch.float16:
+        _grad_check(lambda *t: flash_attention.FlashAttention.apply(*t, False),
+                    lambda *t: flash_attention.flash_attention_plain(*t, causal=False), [q, k, v], dt)
+    assert flash_attention.launches > before[0]
+    assert flash_attention.backward_calls == before[1] + (dt != torch.float16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone", ["rn", "vit"])
+def test_tiny_classifier_step_card_matches_cpu(cuda, monkeypatch, backbone):
+    """One fp32 SGD step of a seeded tiny supervised classifier (RN: 15
+    train-mode BatchNorms through K1-K3; ViT: K4 at head dim 64) on the card
+    and on the CPU: loss rtol 1e-4, every gradient within 1e-3 of its
+    largest element, and the BatchNorm running statistics after the step
+    within 1e-5."""
+    from xclip_tpu_torch.models import factory
+    from xclip_tpu_torch.train import learner
+
+    cfgs = {"rn": {"embed_dim": 32, "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1], "width": 16,
+                                                   "patch_size": None}},
+            "vit": {"embed_dim": 32, "vision_cfg": {"image_size": 64, "patch_size": 16, "width": 128, "layers": 2,
+                                                    "head_width": 64}}}
+    cfg = dict(cfgs[backbone], text_cfg={"context_length": 16, "vocab_size": 100, "width": 32, "heads": 1,
+                                         "layers": 1})
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyClassifierGpu", cfg)
+    monkeypatch.setattr(learner.ClassifierCfg, "backbone_name", property(lambda self: "TinyClassifierGpu"))
+    monkeypatch.setattr(learner.ClassifierCfg, "feature_dim", property(lambda self: 32))
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randint(0, 256, (16, 64, 64, 3)).astype(np.uint8))
+    labels = torch.from_numpy(rng.randint(0, 10, 16).astype(np.int32))
+    results = []
+    for device in ("cpu", "cuda"):
+        model = learner.create_classifier(learner.ClassifierCfg(num_classes=10, lr=1e-3), device=device).train()
+        step, opt = learner.make_classifier_train_step(model, steps_per_epoch=1, precision="fp32")
+        grads = {}  # read before the update: CUDA's foreach Nesterov SGD adds the momentum into .grad
+        opt.register_step_pre_hook(lambda *_, m=model, g=grads: g.update(
+            {n: p.grad.cpu() for n, p in m.named_parameters()}))
+        launches = fused_conv.stats_launches, flash_attention.launches
+        m = step(images.to(device), labels.to(device))
+        if device == "cuda":
+            assert (fused_conv.stats_launches > launches[0]) == (backbone == "rn")
+            assert (flash_attention.launches > launches[1]) == (backbone == "vit")
+        results.append((float(m["loss"]), grads, {n: b.cpu() for n, b in model.named_buffers() if "running" in n}))
+    (loss_cpu, g_cpu, b_cpu), (loss_gpu, g_gpu, b_gpu) = results
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
+    for name, ref in g_cpu.items():
+        torch.testing.assert_close(g_gpu[name], ref, atol=1e-3 * float(ref.abs().max()) + 1e-7, rtol=0)
+    for name, ref in b_cpu.items():
+        torch.testing.assert_close(b_gpu[name], ref, atol=1e-5, rtol=1e-5)

@@ -194,3 +194,103 @@ def test_lso_metrics_match_jax():
         jax_lso.merge_step_results([got, got], [1, 2], "sketch")
     for f in ("epoch_3.pt", "run_step_1200.pt"):
         assert port_lso.epoch_or_step_from_ckpt_file(f) == jax_lso.epoch_or_step_from_ckpt_file(f)
+
+
+def test_lso_metrics_domainnet_only_and_classes_match_jax():
+    """The supervised protocol's DomainNet-only metrics (no ImageNet-val
+    predictions), a custom ``class_to_idx`` and ``merge_step_results(...,
+    classes=)`` give JAX's dicts; one of ``val_labels`` / ``val_pred``
+    alone is refused, as in JAX."""
+    from xclip_tpu.evals import lso as jax_lso
+    from xclip_tpu_torch.evals import lso as port_lso
+
+    rng = np.random.RandomState(1)
+    classes = dict(enumerate(_classnames()))
+    labels = np.concatenate([np.arange(345), np.arange(345)])
+    ids = np.array([4] * 345 + [1] * 345)  # real, infograph
+    pred = np.where(rng.rand(690) < 0.3, labels, rng.randint(0, 345, 690))
+    kw = dict(domain_labels=labels, domain_pred=pred, domain_ids=ids, domain="infograph", domainnet_classes=classes)
+    got = port_lso.evaluate_lso(**kw)
+    assert got == jax_lso.evaluate_lso(**kw) and got["imagenet-val"] == {"accuracy": {}}
+    sub = {"banana": 13, "lion": 174, "thing 7": 7}
+    assert port_lso.evaluate_lso(class_to_idx=sub, **kw) == jax_lso.evaluate_lso(class_to_idx=sub, **kw)
+    assert port_lso.merge_step_results([got], [0], "infograph", classes=list(sub)) == \
+        jax_lso.merge_step_results([got], [0], "infograph", classes=list(sub))
+    with pytest.raises(ValueError, match="together"):
+        port_lso.evaluate_lso(val_labels=labels[:3], **kw)
+
+
+def test_top_k_accuracy_matches_jax_with_ties():
+    """Integer scores with many ties: the same ``np.argpartition`` picks the
+    same top k, so every k gives JAX's number."""
+    from xclip_tpu.evals import lso as jax_lso
+    from xclip_tpu_torch.evals import lso as port_lso
+
+    rng = np.random.RandomState(2)
+    scores = rng.randint(0, 4, (200, 12)).astype(np.float32)
+    labels = rng.randint(0, 12, 200)
+    for k in (1, 2, 5, 11, 12, 20):
+        assert port_lso.top_k_accuracy(scores, labels, k) == jax_lso.top_k_accuracy(scores, labels, k), k
+
+
+@pytest.mark.parametrize("case", ["random", "missing_from_pred", "missing_from_true", "perfect", "one_sample"])
+def test_f1_macro_matches_sklearn(case):
+    """``lso.f1_macro`` equals ``sklearn.metrics.f1_score(average="macro")``
+    (which the JAX top-k evaluator calls) to the last bit, with classes that
+    occur only in the labels or only in the predictions."""
+    from sklearn.metrics import f1_score
+
+    from xclip_tpu_torch.evals.lso import f1_macro
+
+    rng = np.random.RandomState(3)
+    y_true = rng.randint(0, 20, 300)
+    y_pred = {"random": rng.randint(0, 20, 300), "missing_from_pred": np.where(y_true < 5, 6, y_true),
+              "missing_from_true": np.where(rng.rand(300) < 0.2, 25 + rng.randint(0, 3, 300), y_true),
+              "perfect": y_true.copy(), "one_sample": None}[case]
+    if case == "one_sample":
+        y_true, y_pred = np.array([3]), np.array([4])
+    assert f1_macro(y_true, y_pred) == float(f1_score(y_true, y_pred, average="macro"))
+
+
+def test_topk_lso_slice_matches_jax(eval_tree, tiny_ckpt, tmp_path, monkeypatch):
+    """``run_lso_evaluation(..., topk=[1, 2])`` in both packages on the tiny
+    harness above (the port through the top-k script's CLI): the same keys;
+    top-1 equals the accuracy; and, where no prediction sits on a near tie,
+    the same numbers (JAX's macro F1 is sklearn's)."""
+    from xclip_tpu_torch.scripts import evaluate_domainnet_lso_openai_topk as topk_script
+
+    monkeypatch.setitem(jax_factory._MODEL_CONFIGS, "TinyRN", TINY)
+    monkeypatch.setitem(port_factory._MODEL_CONFIGS, "TinyRN", TINY)
+    monkeypatch.setattr(jax_run_lso, "XCLIP_IMAGENET_CLASSES", IMAGENET_CLASSES)
+    monkeypatch.setattr(port_run_lso, "XCLIP_IMAGENET_CLASSES", IMAGENET_CLASSES)
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    want = jax_run_lso.run_lso_evaluation(
+        "TinyRN", [str(tiny_ckpt)], str(jax_out), str(eval_tree / "imagenet"), str(eval_tree / "domainnet"),
+        domain="sketch", num_workers=2, topk=[1, 2])
+    assert topk_script.main([
+        "--model", "TinyRN", "--domain", "sketch", "--ckpt_files", str(tiny_ckpt), "--out_path", str(port_out),
+        "--imagenet_path", str(eval_tree / "imagenet"), "--domainnet_path", str(eval_tree / "domainnet"),
+        "--num_workers", "0", "--topk", "1", "2", "--device", "cpu"]) == 0
+    got = json.loads((port_out / "results.json").read_text())
+    for split in ("imagenet-val", "domainnet-val"):
+        assert set(got[split]) == set(want[split]) >= {"accuracy", "top-1-accuracy", "top-2-accuracy", "f1-score"}
+        for key in ("top-1-accuracy", "top-2-accuracy", "f1-score"):
+            assert set(got[split][key]) == set(want[split][key])
+    acc, top1 = got["domainnet-val"]["accuracy"], got["domainnet-val"]["top-1-accuracy"]
+    assert all(top1[k] == acc[k] for k in top1)
+    assert got["imagenet-val"]["top-1-accuracy"] == got["imagenet-val"]["accuracy"]
+    same = all(np.array_equal(np.load(port_out / f), np.load(jax_out / f)) for f in ("val_pred.npy", "domain_pred.npy"))
+    if same:
+        assert got == json.loads((jax_out / "results.json").read_text())
+
+
+def test_topk_script_defaults():
+    from xclip_tpu_torch.evals import run_lso
+
+    args = run_lso.build_parser([1, 5, 10]).parse_args(
+        ["--model", "RN50", "--domain", "sketch", "--ckpt_files", "a.pt", "--out_path", "o", "--imagenet_path", "i",
+         "--domainnet_path", "d"])
+    assert (args.topk, args.precision, args.device) == ([1, 5, 10], "fp32", "cuda")
+    assert run_lso.build_parser().parse_args(
+        ["--model", "RN50", "--domain", "sketch", "--ckpt_files", "a.pt", "--out_path", "o", "--imagenet_path", "i",
+         "--domainnet_path", "d"]).topk is None

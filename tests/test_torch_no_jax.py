@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``xclip_tpu_torch``
-pulls in neither jax nor any module of the JAX package ``xclip_tpu``, and
-no source file of the port (or ``chip_smoke.py``) imports them."""
+pulls in neither jax nor any module of the JAX package ``xclip_tpu``, nor
+scikit-learn (the machine with the card has none), and no source file of
+the port (or ``chip_smoke.py``) imports them."""
 
 import pathlib
 import re
@@ -24,8 +25,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
-        "             or m.startswith('jaxlib.') or m == 'xclip_tpu' or m.startswith('xclip_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'xclip_tpu', 'sklearn'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
     )
@@ -34,20 +34,21 @@ def test_importing_every_module_loads_no_jax():
     assert "BAD []" in res.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|xclip_tpu)\b(?!_torch)|from\s+(jax|jaxlib|xclip_tpu)\b(?!_torch))",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|xclip_tpu|sklearn)\b(?!_torch)"
+                        r"|from\s+(jax|jaxlib|xclip_tpu|sklearn)\b(?!_torch))", re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py"))
                          + ["chip_smoke.py"])
 def test_source_has_no_jax_import(path):
     text = (ROOT / path).read_text()
-    assert not _FORBIDDEN.search(text), f"{path} imports jax or the JAX package"
+    assert not _FORBIDDEN.search(text), f"{path} imports jax, the JAX package or scikit-learn"
 
 
 def test_forbidden_pattern_catches_imports():
     for bad in ("import jax", "import jax.numpy as jnp", "from xclip_tpu.ops import x",
-                "import xclip_tpu", "  from jax import numpy"):
+                "import xclip_tpu", "  from jax import numpy", "import sklearn",
+                "    from sklearn.metrics import f1_score"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import xclip_tpu_torch", "from xclip_tpu_torch.ops import fused_conv",
                "# the JAX package xclip_tpu"):
@@ -55,17 +56,26 @@ def test_forbidden_pattern_catches_imports():
 
 
 def test_modules_import_and_run_with_jax_blocked():
-    """With an import hook that refuses jax, jaxlib and the JAX package, every
-    module of the port imports, and the slice's CPU paths run: the
-    bandwidth probe, an SAE train step, resample and checkpoint, and a
-    ViT tower in train mode with patch dropout."""
+    """With an import hook that refuses jax, jaxlib, the JAX package and
+    scikit-learn, every module of the port imports, and the slice's CPU
+    paths run: the bandwidth probe, an SAE train step, resample and
+    checkpoint, a ViT tower in train mode with patch dropout, a supervised
+    classifier step with its native checkpoint, and the macro F1."""
     code = (
         "import importlib, importlib.abc, sys\n"
+        "import importlib.machinery\n"
+        "class Refuse(importlib.abc.Loader):\n"
+        "    def create_module(self, spec):\n"
+        "        raise ImportError('blocked: ' + spec.name)\n"
+        "    def exec_module(self, module):\n"
+        "        raise ImportError('blocked: ' + module.__name__)\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        root = name.split('.')[0]\n"
         "        if root in ('jax', 'jaxlib', 'xclip_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
+        "        if root == 'sklearn':  # found (torch probes for it), but refused on import\n"
+        "            return importlib.machinery.ModuleSpec(name, Refuse())\n"
         "        return None\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for name in {_modules()!r}:\n"
@@ -90,6 +100,25 @@ def test_modules_import_and_run_with_jax_blocked():
         "    'layers': 1, 'patch_dropout': 0.5}}\n"
         "vit = factory.create_model('T', device='cpu').train()\n"
         "assert vit.encode_image(torch.randn(2, 32, 32, 3), generator=torch.Generator()).shape == (2, 16)\n"
+        "from xclip_tpu_torch.train import learner\n"
+        "factory._MODEL_CONFIGS['R'] = {'embed_dim': 16, 'text_cfg': {'context_length': 8, 'vocab_size': 100,\n"
+        "    'width': 64, 'heads': 1, 'layers': 1}, 'vision_cfg': {'image_size': 32, 'layers': [1, 1, 1, 1],\n"
+        "    'width': 8, 'patch_size': None}}\n"
+        "learner.ClassifierCfg.backbone_name = property(lambda self: 'R')\n"
+        "learner.ClassifierCfg.feature_dim = property(lambda self: 16)\n"
+        "clf = learner.create_classifier(learner.ClassifierCfg(num_classes=5), device='cpu').train()\n"
+        "step, _ = learner.make_classifier_train_step(clf, steps_per_epoch=1, precision='fp32')\n"
+        "m = step(torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8), torch.tensor([0, 4]))\n"
+        "assert np.isfinite(float(m['loss']))\n"
+        "learner.save_classifier(d + '/c.npz', clf, {'epoch': 1})\n"
+        "assert learner.load_classifier(d + '/c.npz', clf) == {'epoch': 1}\n"
+        "from xclip_tpu_torch.evals.lso import f1_macro\n"
+        "assert f1_macro(np.array([0, 1, 1]), np.array([0, 1, 2])) == (1 + 2 / 3 + 0) / 3\n"
+        "try:\n"
+        "    import sklearn\n"
+        "    raise AssertionError('sklearn imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
         "print('OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -21,14 +21,22 @@
   kernels become OIHW, ``(in, out)`` linear kernels ``(out, in)``, the
   separate q/k/v projections the packed ``in_proj_*`` (the attentional
   pooler's stay separate when its key width differs, as in
-  ``nn.MultiheadAttention``), LayerScale gammas ``ls_1.gamma``/``ls_2.gamma``.
+  ``nn.MultiheadAttention``), LayerScale gammas ``ls_1.gamma``/``ls_2.gamma``;
+- the JAX package's native ``.npz`` format (``flatten_pytree``,
+  ``unflatten_into``, ``save_native``, ``load_native``; checkpoint.py:42-112,
+  652-684), in which the supervised classifier is saved: its weights cross
+  between the port's state dict and JAX's ``learner.Classifier`` pytrees
+  both ways (:func:`classifier_pytrees_from_state_dict`,
+  :func:`classifier_state_dict_from_pytrees`), so a checkpoint written by
+  either package loads in the other.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,18 +237,12 @@ def _vit_state_dict(vp: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """Port state dict from JAX ``(params, state)`` of a ResNet or ViT CLIP.
-
-    ``params``/``state`` are the pytrees of ``xclip_tpu.models.clip.CLIPModel``
-    with numpy leaves; ``cfg`` is this port's ``CLIPCfg`` (or the JAX one:
-    only ``vision.layers`` and ``text.layers`` are read; ``state`` only for
-    a ResNet).
-    """
+def visual_state_dict_from_jax(vp: Mapping, vs: Optional[Mapping], cfg) -> Dict[str, torch.Tensor]:
+    """``visual.*`` of the port's state dict from the JAX image tower's
+    params ``vp`` and state ``vs`` (a ResNet's BatchNorm statistics; unread
+    for a ViT); ``cfg`` as in :func:`state_dict_from_jax_params`."""
     sd: Dict[str, torch.Tensor] = {}
-    vp = params["visual"]
     if isinstance(cfg.vision.layers, (list, tuple)):
-        vs = state["visual"]
         for i in (1, 2, 3):
             sd[f"visual.conv{i}.weight"] = _conv(vp["stem"][f"conv{i}"]["kernel"])
             _put_bn(sd, f"visual.bn{i}", vp["stem"][f"bn{i}"], vs["stem"][f"bn{i}"])
@@ -254,7 +256,19 @@ def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str
             _put_lin(sd, f"visual.attnpool.{dst_name}", ap[name])
     else:
         sd.update(_vit_state_dict(vp))
+    return sd
 
+
+def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Port state dict from JAX ``(params, state)`` of a ResNet or ViT CLIP.
+
+    ``params``/``state`` are the pytrees of ``xclip_tpu.models.clip.CLIPModel``
+    with numpy leaves; ``cfg`` is this port's ``CLIPCfg`` (or the JAX one:
+    only ``vision.layers`` and ``text.layers`` are read; ``state`` only for
+    a ResNet).
+    """
+    resnet = isinstance(cfg.vision.layers, (list, tuple))
+    sd = visual_state_dict_from_jax(params["visual"], state["visual"] if resnet else None, cfg)
     tp = params["text"]
     sd["token_embedding.weight"] = _t(tp["token_embedding"])
     sd["positional_embedding"] = _t(tp["positional_embedding"])
@@ -263,4 +277,171 @@ def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str
     for i in range(cfg.text.layers):
         _put_block(sd, f"transformer.resblocks.{i}", tp["blocks"][i])
     sd["logit_scale"] = _t(np.asarray(params["logit_scale"]).reshape(()))
+    return sd
+
+
+# --- the JAX package's native checkpoint format (.npz + JSON extras) -------
+
+SEP = "/"
+
+
+def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> ``{"a/b/0/c": array}`` (``checkpoint.flatten_pytree``)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, f"{path}{SEP}{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(v, f"{path}{SEP}{i}" if path else str(i))
+        else:
+            out[path] = np.asarray(node)
+
+    rec(tree, prefix)
+    return out
+
+
+def unflatten_into(tree, flat: Mapping[str, np.ndarray]):
+    """``tree`` with every leaf replaced by ``flat``'s value at its path, cast
+    to the leaf's dtype; raises on a missing path or another shape, as
+    ``checkpoint.unflatten_into`` does."""
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            return {k: rec(v, f"{path}{SEP}{k}" if path else str(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            seq = [rec(v, f"{path}{SEP}{i}" if path else str(i)) for i, v in enumerate(node)]
+            return type(node)(seq) if isinstance(node, tuple) else seq
+        if path not in flat:
+            raise KeyError(f"checkpoint missing key {path}")
+        val = np.asarray(flat[path])
+        if tuple(val.shape) != tuple(np.shape(node)):
+            raise ValueError(f"shape mismatch for {path}: ckpt {val.shape} vs model {np.shape(node)}")
+        return val.astype(np.asarray(node).dtype)
+
+    return rec(tree, "")
+
+
+def save_native(path: str, params, state, extras: Optional[dict] = None) -> None:
+    """Write param and state pytrees (nested dicts and lists of arrays) to
+    one ``.npz`` with the keys ``params/...`` and ``state/...`` and the
+    ``extras`` JSON as the uint8 array ``__extras__``, through ``.tmp`` and
+    ``os.replace`` (``checkpoint.save_native``)."""
+    flat = {"params" + SEP + k: v for k, v in flatten_pytree(params).items()}
+    flat.update({"state" + SEP + k: v for k, v in flatten_pytree(state).items()})
+    header = json.dumps(extras or {})
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, __extras__=np.frombuffer(header.encode(), dtype=np.uint8), **flat)
+    os.replace(tmp, path)
+
+
+def load_native(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], dict]:
+    """A native checkpoint as flat ``(params, state, extras)``, the paths
+    without their ``params/`` and ``state/`` prefixes."""
+    with np.load(path) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    extras = json.loads(flat.pop("__extras__").tobytes().decode()) if "__extras__" in flat else {}
+    pflat = {k[len("params") + 1:]: v for k, v in flat.items() if k.startswith("params" + SEP)}
+    sflat = {k[len("state") + 1:]: v for k, v in flat.items() if k.startswith("state" + SEP)}
+    return pflat, sflat, extras
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _get_lin(sd, name: str) -> dict:
+    out = {"kernel": _np(sd[f"{name}.weight"]).T.copy()}
+    if f"{name}.bias" in sd:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _get_scale_bias(sd, name: str) -> dict:
+    return {"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
+
+
+def _get_conv(sd, name: str) -> dict:
+    return {"kernel": np.transpose(_np(sd[name]), (2, 3, 1, 0)).copy()}  # OIHW -> HWIO
+
+
+def _get_bn_stats(sd, name: str) -> dict:
+    return {"mean": _np(sd[f"{name}.running_mean"]), "var": _np(sd[f"{name}.running_var"])}
+
+
+def visual_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Tuple[dict, dict]:
+    """The JAX image tower's ``(params, state)`` pytrees (numpy leaves) from
+    the port's ``visual.*`` weights: the inverse of
+    :func:`visual_state_dict_from_jax`, with the paths and shapes of JAX's
+    ``resnet_init`` / ``vit_init`` (the visual half of
+    ``checkpoint.open_clip_state_dict_to_pytrees``). A ViT has no state."""
+    if not isinstance(cfg.vision.layers, (list, tuple)):
+        if "visual.attn_pool.query" in sd:
+            raise NotImplementedError("the attentional pooler has no JAX pytree bridge in the port")
+        width = cfg.vision.width
+        vp = {"conv1": _get_conv(sd, "visual.conv1.weight"),
+              "class_embedding": _np(sd["visual.class_embedding"]),
+              "positional_embedding": _np(sd["visual.positional_embedding"]),
+              "blocks": [], "ln_post": _get_scale_bias(sd, "visual.ln_post"), "proj": _np(sd["visual.proj"])}
+        if "visual.ln_pre.weight" in sd:
+            vp["ln_pre"] = _get_scale_bias(sd, "visual.ln_pre")
+        for i in range(cfg.vision.layers):
+            src = f"visual.transformer.resblocks.{i}"
+            w, b = _np(sd[f"{src}.attn.in_proj_weight"]), _np(sd[f"{src}.attn.in_proj_bias"])
+            attn = {n: {"kernel": w[j * width:(j + 1) * width].T.copy(), "bias": b[j * width:(j + 1) * width]}
+                    for j, n in enumerate(("q", "k", "v"))}
+            attn["out"] = _get_lin(sd, f"{src}.attn.out_proj")
+            block = {"ln_1": _get_scale_bias(sd, f"{src}.ln_1"), "attn": attn,
+                     "ln_2": _get_scale_bias(sd, f"{src}.ln_2"),
+                     "mlp": {"c_fc": _get_lin(sd, f"{src}.mlp.c_fc"), "c_proj": _get_lin(sd, f"{src}.mlp.c_proj")}}
+            for ls in ("ls_1", "ls_2"):
+                if f"{src}.{ls}.gamma" in sd:
+                    block[ls] = _np(sd[f"{src}.{ls}.gamma"])
+            vp["blocks"].append(block)
+        return vp, {}
+    vp: dict = {"stem": {}}
+    vs: dict = {"stem": {}}
+    for i in (1, 2, 3):
+        vp["stem"][f"conv{i}"] = _get_conv(sd, f"visual.conv{i}.weight")
+        vp["stem"][f"bn{i}"] = _get_scale_bias(sd, f"visual.bn{i}")
+        vs["stem"][f"bn{i}"] = _get_bn_stats(sd, f"visual.bn{i}")
+    for li, blocks in enumerate(cfg.vision.layers):
+        vp[f"layer{li + 1}"], vs[f"layer{li + 1}"] = [], []
+        for b in range(blocks):
+            src = f"visual.layer{li + 1}.{b}"
+            bp, bs = {}, {}
+            for ci in (1, 2, 3):
+                bp[f"conv{ci}"] = _get_conv(sd, f"{src}.conv{ci}.weight")
+                bp[f"bn{ci}"] = _get_scale_bias(sd, f"{src}.bn{ci}")
+                bs[f"bn{ci}"] = _get_bn_stats(sd, f"{src}.bn{ci}")
+            if f"{src}.downsample.0.weight" in sd:
+                bp["downsample"] = {"conv": _get_conv(sd, f"{src}.downsample.0.weight"),
+                                    "bn": _get_scale_bias(sd, f"{src}.downsample.1")}
+                bs["downsample_bn"] = _get_bn_stats(sd, f"{src}.downsample.1")
+            vp[f"layer{li + 1}"].append(bp)
+            vs[f"layer{li + 1}"].append(bs)
+    vp["attnpool"] = {"positional_embedding": _np(sd["visual.attnpool.positional_embedding"])}
+    for name, src_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "c_proj")):
+        vp["attnpool"][name] = _get_lin(sd, f"visual.attnpool.{src_name}")
+    return vp, vs
+
+
+def classifier_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Tuple[dict, dict]:
+    """The JAX ``learner.Classifier``'s ``({"backbone", "head"}, {"visual"})``
+    pytrees from the port classifier's state dict (``visual.*``, ``head.*``);
+    ``cfg`` is the backbone's ``CLIPCfg``."""
+    vp, vs = visual_pytrees_from_state_dict(sd, cfg)
+    return {"backbone": vp, "head": _get_lin(sd, "head")}, {"visual": vs}
+
+
+def classifier_state_dict_from_pytrees(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The port classifier's state dict from the JAX classifier's pytrees:
+    the inverse of :func:`classifier_pytrees_from_state_dict` (BatchNorm
+    ``num_batches_tracked`` is 0: JAX keeps no count)."""
+    resnet = isinstance(cfg.vision.layers, (list, tuple))
+    sd = visual_state_dict_from_jax(params["backbone"], state["visual"] if resnet else None, cfg)
+    _put_lin(sd, "head", params["head"])
     return sd

@@ -2,16 +2,20 @@
 
 Counterpart of ``xclip_tpu/evals/run_lso.py`` (``evaluate_checkpoint`` and
 ``run_lso_evaluation``, :54-194) behind the flags of
-``scripts/evaluate_domainnet_lso_openai.py``, plus ``--device``:
+``scripts/evaluate_domainnet_lso_openai.py``, plus ``--device`` and the
+top-k evaluator's ``--topk`` (``scripts/evaluate_domainnet_lso_openai_topk.py``,
+whose port is ``xclip_tpu_torch.scripts.evaluate_domainnet_lso_openai_topk``):
 
     python -m xclip_tpu_torch.evals.run_lso --model RN50 --domain sketch \\
         --ckpt_files epoch_1.pt epoch_2.pt --out_path out/ \\
         --imagenet_path imagenet/ --domainnet_path domainnet/ --precision bf16
 
 writes the same ``results.json`` and prediction ``.npy`` files as the JAX
-evaluator. The device defaults to CUDA and must be present unless
-``--device cpu`` is given. fp32 products and convolutions run in full
-fp32 (no TF32).
+evaluator; with ``--topk 1 5 10`` each step also gets ``top-{k}-accuracy``
+and a macro ``f1-score`` for ``imagenet-val`` and for each of {domain,
+real} x {lso-ood, lso-id} (the macro F1 in numpy, ``lso.f1_macro``). The
+device defaults to CUDA and must be present unless ``--device cpu`` is
+given. fp32 products and convolutions run in full fp32 (no TF32).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from xclip_tpu_torch.core.device import resolve_device
 from xclip_tpu_torch.core.precision import disable_tf32, get_policy
-from xclip_tpu_torch.data.datasets import DomainNetCaptions, ImageNet
+from xclip_tpu_torch.data.datasets import DOMAIN_TO_IDX, DomainNetCaptions, ImageNet
 from xclip_tpu_torch.data.transforms import image_transform
 from xclip_tpu_torch.evals.features import extract_image_features
 from xclip_tpu_torch.evals.lso import (
@@ -37,8 +41,10 @@ from xclip_tpu_torch.evals.lso import (
     domainnet_classes_from_samples,
     epoch_or_step_from_ckpt_file,
     evaluate_lso,
+    f1_macro,
     merge_step_results,
     serialize_predictions,
+    top_k_accuracy,
 )
 from xclip_tpu_torch.evals.metadata import XCLIP_IMAGENET_CLASSES
 from xclip_tpu_torch.evals.zero_shot import OpenAIZeroShotClassifier
@@ -69,11 +75,13 @@ def evaluate_checkpoint(
     batch_size: int = 250,
     num_workers: int = 8,
     precision: str = "fp32",
+    topk: Optional[List[int]] = None,
 ):
     """One checkpoint: image features, both zero-shot heads, LSO metrics.
     ``precision`` as in the JAX evaluator: ``bf16`` computes in bfloat16;
     ``fp16`` computes in IEEE half and scores with half features and
-    classifier weights, as the reference's ``.half()`` eval encoders do."""
+    classifier weights, as the reference's ``.half()`` eval encoders do.
+    ``topk`` adds the top-k accuracies and macro F1 scores."""
     if precision in ("fp16", "float16"):
         precision = "float16"
     dtype = get_policy(precision).compute_dtype if precision != "fp32" else None
@@ -114,7 +122,33 @@ def evaluate_checkpoint(
         domain_labels=domain_labels, domain_pred=domain_pred, domain_ids=domain_ids,
         domain=domain, domainnet_classes=domainnet_classes,
     )
+    if topk:
+        add_topk_metrics(res, topk, val_scores, val_labels, val_pred, dn_scores, domain_labels, domain_pred,
+                         domain_ids, domain)
     return res, (val_labels, val_pred, domain_labels, domain_pred, domain_ids)
+
+
+def add_topk_metrics(res: Dict, topk: List[int], val_scores, val_labels, val_pred, dn_scores, domain_labels,
+                     domain_pred, domain_ids, domain: str) -> None:
+    """The top-k evaluator's keys, in place (JAX run_lso.py:114-150):
+    ``top-{k}-accuracy`` and ``f1-score`` (macro) for ``imagenet-val``
+    (``total``) and for each of {domain, real} x {lso-ood, lso-id}."""
+    for k in topk:
+        res["imagenet-val"][f"top-{k}-accuracy"] = {"total": top_k_accuracy(val_scores, val_labels, k)}
+        res["domainnet-val"].setdefault(f"top-{k}-accuracy", {})
+    res["imagenet-val"]["f1-score"] = {"total": f1_macro(val_labels, val_pred)}
+    res["domainnet-val"]["f1-score"] = {}
+    lso_vals = list(LSO_CLASS_TO_IDX.values())
+    for dom in [domain, "real"]:
+        mask = domain_ids == DOMAIN_TO_IDX[dom]
+        kw_labels, kw_scores, kw_pred = domain_labels[mask], dn_scores[mask], domain_pred[mask]
+        lso_mask = np.isin(kw_labels, lso_vals)
+        for k in topk:
+            acc = res["domainnet-val"][f"top-{k}-accuracy"]
+            acc[f"{dom}-lso-ood"] = top_k_accuracy(kw_scores[lso_mask], kw_labels[lso_mask], k)
+            acc[f"{dom}-lso-id"] = top_k_accuracy(kw_scores[~lso_mask], kw_labels[~lso_mask], k)
+        res["domainnet-val"]["f1-score"][f"{dom}-lso-ood"] = f1_macro(kw_labels[lso_mask], kw_pred[lso_mask])
+        res["domainnet-val"]["f1-score"][f"{dom}-lso-id"] = f1_macro(kw_labels[~lso_mask], kw_pred[~lso_mask])
 
 
 def run_lso_evaluation(
@@ -126,6 +160,7 @@ def run_lso_evaluation(
     domain: str,
     domain_invariant: bool = False,
     num_workers: int = 8,
+    topk: Optional[List[int]] = None,
     precision: str = "fp32",
     device: Union[str, torch.device] = "cuda",
 ) -> Dict:
@@ -149,7 +184,7 @@ def run_lso_evaluation(
         logging.info("model loaded in %.2f s", time.perf_counter() - t0)
         res, preds = evaluate_checkpoint(
             model, tokenizer, data, domain, domainnet_classes,
-            domain_invariant=domain_invariant, num_workers=num_workers, precision=precision,
+            domain_invariant=domain_invariant, num_workers=num_workers, precision=precision, topk=topk,
         )
         results_per_step.append(res)
         predictions.append(preds)
@@ -162,7 +197,7 @@ def run_lso_evaluation(
     return results
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def build_parser(topk_default: Optional[List[int]] = None) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Zero-shot DomainNet-LSO evaluation (PyTorch/CUDA port).")
     parser.add_argument("--model", type=str, required=True, help="CLIP model type")
     parser.add_argument("--domain", type=str, required=True, choices=EVAL_DOMAINS)
@@ -174,13 +209,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--domain_invariant", action="store_true")
     parser.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16", "fp16"],
                         help="eval encoder precision; fp16 computes and scores in IEEE half")
+    parser.add_argument("--topk", type=int, nargs="+", default=topk_default,
+                        help="also report these top-k accuracies and the macro F1 scores")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None, topk_default: Optional[List[int]] = None) -> int:
+    args = build_parser(topk_default).parse_args(argv)
     disable_tf32()
     run_lso_evaluation(
         args.model, args.ckpt_files, args.out_path, args.imagenet_path, args.domainnet_path,
         args.domain, domain_invariant=args.domain_invariant, num_workers=args.num_workers,
-        precision=args.precision, device=args.device,
+        topk=args.topk, precision=args.precision, device=args.device,
     )
     return 0
 

@@ -81,26 +81,12 @@ from xclip_tpu_torch.train import optim, schedule
 from xclip_tpu_torch.train.evaluate import evaluate
 from xclip_tpu_torch.train.params import parse_args
 from xclip_tpu_torch.train.step import TrainStepCfg, make_train_step
+from xclip_tpu_torch.utils.meters import AverageMeter
 from xclip_tpu_torch.utils.wandb_logger import init_wandb
 
 LATEST_CHECKPOINT_NAME = "epoch_latest.pt"
 # precision flag -> the train step's compute policy, as the JAX trainer maps it
 _BF16_FLAGS = ("amp", "amp_bf16", "amp_bfloat16", "bf16", "fp16")
-
-
-class AverageMeter:
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.val = self.avg = self.sum = 0.0
-        self.count = 0
-
-    def update(self, val: float, n: int = 1) -> None:
-        self.val = val
-        self.sum += val * n
-        self.count += n
-        self.avg = self.sum / self.count
 
 
 def natural_key(s: str):

@@ -2,14 +2,18 @@
 
 Counterpart of ``xclip_tpu/train/schedule.py`` (reference
 training/scheduler.py): linear warmup into cosine, constant, or constant
-with a cooldown. The train step evaluates them at the 0-based optimizer
-step before each update, as optax evaluates a schedule at its count.
+with a cooldown; and, for the supervised baseline, optax's
+``piecewise_constant_schedule`` (``learner.py:96-97``). The train step
+evaluates them at the 0-based optimizer step before each update, as optax
+evaluates a schedule at its count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Mapping
+
+import numpy as np
 
 Schedule = Callable[[int], float]
 
@@ -48,6 +52,22 @@ def const_lr_cooldown(base_lr: float, warmup_length: int, steps: int, cooldown_s
         es = max(steps - start_cooldown, 1)
         decay = (1 - e / es) ** cooldown_power
         return decay * (base_lr - cooldown_end_lr) + cooldown_end_lr
+
+    return schedule
+
+
+def piecewise_constant(base_lr: float, boundaries_and_scales: Mapping[int, float]) -> Schedule:
+    """``optax.piecewise_constant_schedule``: each boundary's scale applies
+    from the step equal to the boundary on (a per-step boundary, not
+    torch's per-epoch ``MultiStepLR``), in fp32 as optax computes it."""
+    bounds = sorted(boundaries_and_scales.items())
+
+    def schedule(step: int) -> float:
+        v = np.float32(base_lr)
+        for boundary, scale in bounds:
+            if step >= boundary:
+                v = np.float32(np.float32(scale) * v)
+        return float(v)
 
     return schedule
 
