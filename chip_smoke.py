@@ -137,7 +137,27 @@ Phases, each fatal on failure:
    7b. one fp32 SAE step at full width on the card against the CPU: the
    loss, the gradients (in norm), and the parameters after a step from the
    same gradients;
-8. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+8. the interpretability path at full RN50 width, fp32: a seeded
+   DomainNet tree (30 classes, each a colour and stripes of its own, 2
+   images each in six domains, 16 of class 0 in real and sketch), a seed-0
+   RN50 whose image weights pass through the JAX layout and back with
+   seeded BatchNorms, and a copy with running statistics from the tree for
+   the CKA (``interp_rn50_checkpoint``);
+   ``xclip_tpu_torch.scripts.compute_circuits.main`` for class 0 in real
+   and in sketch (22 submodules, 21 edge pairs, steps 10, node threshold
+   0.1; 16 images, the protocol's 50 cut): every stage's mean IG gradient
+   finite and not all zero, K1/K2 launches and MatmulAffineAct backward
+   calls exactly as the attribution's chunking gives them
+   (``interp_counts``), the nodes' and edges' CUDA-event times and the peak
+   memory; K1/K2 in fp32 against plain at every shape the circuits launch
+   (``interp_kernel_shapes``); 2 images' node effects at all 22 stages and
+   one edge pair held against the port on the CPU; ``compute_node_similarity`` and
+   ``compute_circuit_similarity`` (Jaccard, WL) over the two domains;
+   ``representational_analysis`` with the calibrated copy on the card and
+   on the CPU (``cka_linear.json`` compared value by value); ``analyze_sae_features`` with a seeded
+   1024 -> 4096 SAE and ``name_concepts`` over a written 1,000-word
+   vocabulary (exact K4 launches);
+9. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Per-shape numbers also go
 to ``build/chip_smoke_report.json`` (nvcc's register/spill report is
@@ -357,10 +377,11 @@ def torch_all_finite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
-def fused_conv_shapes(cfg, batch: int):
-    """(role, M, K, C, identity, relu) of every fused 1x1-conv launch of one
-    image batch through the ModifiedResNet (the Bottleneck's eval path)."""
-    shapes = []
+def block_conv_shapes(cfg, batch: int):
+    """For each bottleneck of the ModifiedResNet in order, the (role, M, K,
+    C, identity, relu) of its fused 1x1-conv launches for one image batch
+    (the Bottleneck's eval path)."""
+    blocks_ = []
     hw = cfg.image_size // 4  # stride-2 stem conv + 2x2 avgpool
     inplanes = cfg.width
     for stage, (mult, blocks) in enumerate(zip((1, 2, 4, 8), cfg.layers)):
@@ -368,12 +389,19 @@ def fused_conv_shapes(cfg, batch: int):
         for b in range(blocks):
             stride = 2 if stage > 0 and b == 0 else 1
             ohw = hw // stride
-            shapes.append(("conv1", batch * hw * hw, inplanes, planes, False, True))
+            shapes = [("conv1", batch * hw * hw, inplanes, planes, False, True)]
             if stride > 1 or inplanes != planes * 4:
                 shapes.append(("downsample", batch * ohw * ohw, inplanes, planes * 4, False, False))
             shapes.append(("conv3", batch * ohw * ohw, planes, planes * 4, True, True))
+            blocks_.append(shapes)
             hw, inplanes = ohw, planes * 4
-    return shapes
+    return blocks_
+
+
+def fused_conv_shapes(cfg, batch: int):
+    """(role, M, K, C, identity, relu) of every fused 1x1-conv launch of one
+    image batch through the ModifiedResNet's eval path."""
+    return [s for block in block_conv_shapes(cfg, batch) for s in block]
 
 
 def phase_kernels(torch, fused_conv, flash_attention, rn50, dtypes):
@@ -1713,8 +1741,15 @@ def fp32_kernel_shapes(torch, fused_conv, rn50, batches, path: str) -> dict:
     """K1/K2 vs plain in fp32 at every fused-conv shape of a path's fp32
     image batches, full and ragged: phase 3 checks the eval batch of 250
     only."""
+    unique = {s[1:] for bsz in batches for s in fused_conv_shapes(rn50.vision, bsz)}
+    return check_fp32_shapes(torch, fused_conv, unique, path, f"image batches {batches}") | {"batches": batches}
+
+
+def check_fp32_shapes(torch, fused_conv, shapes, path: str, note: str) -> dict:
+    """K1/K2 vs plain in fp32 at each (M, K, C, identity, relu) of
+    ``shapes``, on seeded inputs, at the fp32 tolerance."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    unique = sorted({s[1:] for bsz in batches for s in fused_conv_shapes(rn50.vision, bsz)}, reverse=True)
+    unique = sorted(shapes, reverse=True)
     errs = {"K1": 0.0, "K2": 0.0}
     for m, k, c, ident, relu in unique:
         z = torch.randn(m, k, device="cuda", generator=gen)
@@ -1731,27 +1766,26 @@ def fp32_kernel_shapes(torch, fused_conv, rn50, batches, path: str) -> dict:
             fail(f"matmul_affine_act fp32 M={m} K={k} C={c} id={ident} ({path}): max_abs_err {err}")
         del z, w, g, b, idn, got, ref
     torch.cuda.empty_cache()
-    log(f"  K1/K2 fp32 vs plain at the {path}'s {len(unique)} shapes (image batches {batches}, largest M "
+    log(f"  K1/K2 fp32 vs plain at the {path}'s {len(unique)} shapes ({note}, largest M "
         f"{unique[0][0]}): max_abs_err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g} (tolerance {TOLERANCE['fp32']})")
-    return {"batches": batches, "shapes": len(unique), "max_abs_err": errs}
+    return {"shapes": len(unique), "largest_m": unique[0][0], "max_abs_err": errs}
 
 
 def check_tower_routes(torch, fused_conv, enc, images, tail: int, per_batch: int) -> dict:
     """The fp32 image tower through the kernels against the same model with
     its 1x1 convs on the plain route, at the cache's batch and its ragged
     tail; the kernel route launches ``per_batch`` kernels, the plain none."""
-    from xclip_tpu_torch.models import resnet
-
     errs = {}
     with torch.inference_mode():
         for n in (len(images), tail):
             before = fused_conv.launches
             got = enc.encode_image(images[:n], normalize=True)
-            kernel_route, resnet.matmul_affine_act = resnet.matmul_affine_act, fused_conv.matmul_affine_act_plain
+            kernel_route = fused_conv.matmul_affine_act
+            fused_conv.matmul_affine_act = fused_conv.matmul_affine_act_plain
             try:
                 ref = enc.encode_image(images[:n], normalize=True)
             finally:
-                resnet.matmul_affine_act = kernel_route
+                fused_conv.matmul_affine_act = kernel_route
             torch.cuda.synchronize()
             launched = fused_conv.launches - before
             ok, errs[n] = close(got, ref, TOLERANCE["fp32"])
@@ -2522,8 +2556,466 @@ def supervised_card_vs_cpu(torch, factory, learner) -> dict:
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "bn_rel_err": bn_err}
 
 
+# phase 8: the interpretability path (scripts/compute_circuits.py and the analyses after it)
+INTERP_CLASSES = 30      # the tree's DomainNet classes 0-29 in every domain (5 LSO classes: 0, 11, 13, 15, 25)
+INTERP_IMAGES = 16       # images of the circuit's class in real and sketch (the protocol's 50: cut)
+INTERP_PER_CLASS = 2     # images of every other class in every domain
+INTERP_LABEL = 0         # "aircraft carrier", an LSO (ood) class
+INTERP_STEPS, INTERP_THRESHOLD = 10, 0.1  # compute_circuits' defaults
+INTERP_CHECK = 2         # images whose node effects are held card vs CPU
+INTERP_EDGE_CHECK = ("avgpool", "resblock1")  # the edge pair held card vs CPU
+# card vs CPU, fp32, per stage: max |difference| over the largest |effect|
+# (summation order through up to 16 bottlenecks, forward and backward)
+INTERP_TOL = 1e-3
+# cka_linear.json, card vs CPU: |difference| within INTERP_CKA_RTOL of the
+# CPU's |value|, or of INTERP_CKA_FLOOR for values nearer 0 (the ood split
+# has 5 class means); measured 1.1e-4 on H100 (a 9x margin)
+INTERP_CKA_RTOL, INTERP_CKA_FLOOR = 1e-3, 0.1
+INTERP_CKA_MEDIAN = 0.2  # the least median |CKA| at which the comparison is a witness
+INTERP_VOCAB = 1000      # name_concepts' vocabulary: 4 chunks of 256 prompts
+
+
+def make_interp_tree(root: str) -> int:
+    """Seeded DomainNet tree for the interpretability path: in each domain's
+    test split INTERP_PER_CLASS 64 x 48 JPEGs of each class
+    0..INTERP_CLASSES-1, and INTERP_IMAGES of class INTERP_LABEL in real and
+    sketch; class folders ``c{label}``. A class is a colour and a stripe
+    pattern of its own, the same in every domain; a domain adds a tint, an
+    image its noise. The class means then share their structure across
+    domains, and the CKAs over them sit well above zero."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(8)
+    colour = rng.randint(30, 200, (INTERP_CLASSES, 1, 1, 3))
+    yy, xx = np.mgrid[0:48, 0:64]
+    n = 0
+    for domain in ("clipart", "infograph", "painting", "quickdraw", "real", "sketch"):
+        tint = rng.randint(-20, 21, (1, 1, 3))
+        rows = []
+        for label in range(INTERP_CLASSES):
+            count = INTERP_IMAGES if label == INTERP_LABEL and domain in ("real", "sketch") else INTERP_PER_CLASS
+            along = (yy, xx, yy + xx)[label % 3]
+            stripes = 0.5 + 0.5 * np.sin(2 * np.pi * along / (4 + 2 * (label // 3)))[..., None]
+            for i in range(count):
+                rel = f"{domain}/c{label}/{i}.jpg"
+                os.makedirs(os.path.join(root, domain, f"c{label}"), exist_ok=True)
+                img = colour[label, 0] * (0.4 + 0.6 * stripes) + tint + rng.randint(0, 40, (48, 64, 3))
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, rel), quality=90)
+                rows.append(f"{rel}\t{label}\ta {domain} of thing {label}.")
+                n += 1
+        with open(os.path.join(root, f"{domain}_test.tsv"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+    return n
+
+
+def interp_rn50_checkpoint(torch, factory, path: str, tree=None) -> None:
+    """A seed-0 RN50 whose visual weights go through the JAX layout and back
+    (``core.checkpoint.visual_pytrees_from_state_dict``, then
+    ``visual_state_dict_from_jax``, the image half of
+    ``state_dict_from_jax_params``), every BatchNorm drawn from a seed there
+    as the CPU tests draw JAX's; saved as an open_clip ``.pt``.
+
+    With ``tree``, the running statistics are then the tree's own: one
+    train-mode forward of all its images on the card, at momentum 1. With
+    random statistics the deep stages map every image to nearly one point,
+    where the unbiased HSIC over the class means cancels many digits and
+    fp32 rounding alone moves a CKA by percents; calibrated, as a trained
+    tower's are, the classes stay apart. The circuits keep the random
+    statistics: calibrated, many more pre-activations sit within rounding
+    of the relu's kink, and a mask that flips between two fp32 runs moves
+    a gradient by percents at its position."""
+    import numpy as np
+
+    from xclip_tpu_torch.core.checkpoint import visual_pytrees_from_state_dict, visual_state_dict_from_jax
+
+    cfg = factory.get_clip_cfg("RN50")
+    sd = factory.create_model("RN50", seed=0, device="cpu").state_dict()
+    vp, vs = visual_pytrees_from_state_dict(sd, cfg)
+    rng = np.random.RandomState(13)
+
+    def walk(p, s):
+        if isinstance(p, list):
+            for pi, si in zip(p, s):
+                walk(pi, si)
+            return
+        for key, sub in p.items():
+            if key.startswith("bn") or key == "bn":
+                c = sub["scale"].shape[0]
+                sub["scale"] = (rng.rand(c) + 0.5).astype(np.float32)
+                sub["bias"] = (rng.randn(c) * 0.1).astype(np.float32)
+                s["downsample_bn" if key == "bn" else key] = {"mean": (rng.randn(c) * 0.1).astype(np.float32),
+                                                              "var": (rng.rand(c) + 0.5).astype(np.float32)}
+            elif isinstance(sub, (dict, list)) and key in s:
+                walk(sub, s[key])
+            elif key == "downsample":
+                walk(sub, s)
+
+    walk(vp, vs)
+    sd.update(visual_state_dict_from_jax(vp, vs, cfg))
+    if tree is not None:
+        sd = calibrated_bn_state_dict(torch, factory, sd, tree)
+    torch.save({"epoch": 32, "name": "chip_smoke", "state_dict": sd}, path)
+
+
+def calibrated_bn_state_dict(torch, factory, sd: dict, tree: str) -> dict:
+    """``sd`` with every BatchNorm's running statistics taken from one
+    train-mode forward of all of ``tree``'s images on the card."""
+    import numpy as np
+
+    from xclip_tpu_torch.data.datasets import DomainNetCaptions
+    from xclip_tpu_torch.data.transforms import image_transform
+    from xclip_tpu_torch.models import layers
+    from xclip_tpu_torch.models.resnet import apply_bn_moments
+
+    model = factory.create_model("RN50", seed=0, device="cuda")
+    model.load_state_dict(sd)
+    data = DomainNetCaptions(tree, "val", image_transform(model.cfg.image_size), exclude_domains=[])
+    images = torch.from_numpy(np.stack([data[i][0] for i in range(len(data))])).cuda()
+    moments = {}
+    momentum, layers.BN_MOMENTUM = layers.BN_MOMENTUM, 1.0
+    try:
+        model.visual.train()
+        with torch.no_grad():
+            model.visual(images, moments=moments)
+    finally:
+        layers.BN_MOMENTUM = momentum
+    apply_bn_moments(model.visual, moments)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, images
+    torch.cuda.empty_cache()
+    return sd
+
+
+def hsic1_cancellation(means) -> float:
+    """How many times the unbiased HSIC1(K, K)'s three terms exceed their
+    sum, K the linear gram of ``means`` in float64: the factor by which the
+    estimator magnifies the activations' rounding (ROADMAP C4)."""
+    import numpy as np
+
+    x = np.asarray(means, np.float64)
+    k = x @ x.T
+    np.fill_diagonal(k, 0.0)
+    n, kk = k.shape[0], k @ k
+    terms = (np.trace(kk), k.sum() ** 2 / ((n - 1) * (n - 2)), 2.0 / (n - 2) * kk.sum())
+    return float(sum(abs(t) for t in terms) / abs(terms[0] + terms[1] - terms[2]))
+
+
+def interp_passes(cm, n_images: int, steps: int, device):
+    """The tower passes of one compute_class_circuit, from the attribution's
+    chunking: (images in the pass, bottlenecks it runs, whether a backward
+    follows). A no-grad forward of the whole tower (the clean activations)
+    for the nodes and for each edge pair; per chunk of IG copies one forward
+    and one backward through the bottlenecks of its segment."""
+    import math
+
+    from xclip_tpu_torch.interp import attribution
+
+    stages = cm.stages
+    # the bottleneck each stage runs (flattened block number), None outside the resblocks
+    block = [int(s.name[len("resblock"):]) - 1 if s.name.startswith("resblock") else None for s in stages]
+    everything = [b for b in block if b is not None]
+    passes = [(n_images, everything, False)] * len(stages)  # 1 + 21 clean forwards
+    copies = steps * n_images
+    for i, s in enumerate(stages):  # nodes: from each stage to the head
+        after = [b for b in block[i + 1:] if b is not None]
+        for size in attribution.chunk_sizes(copies, cm.segment_elements(s.name), device):
+            passes.append((size, after, True))
+    for i in range(1, len(stages)):  # edges: one segment per downstream neuron copy
+        n_down = math.ceil(stages[i].channels * INTERP_THRESHOLD)
+        own = [block[i]] if block[i] is not None else []
+        for size in attribution.chunk_sizes(n_down * copies, cm.segment_elements(stages[i - 1].name, stages[i].name),
+                                            device):
+            passes.append((size, own, True))
+    return passes
+
+
+def interp_counts(cm, n_images: int, steps: int, device) -> dict:
+    """K1/K2 launches and MatmulAffineAct backward calls of one
+    compute_class_circuit (:func:`interp_passes`): conv1 and conv3 of every
+    bottleneck a pass runs, and the downsample where there is one."""
+    shapes = block_conv_shapes(cm.cfg, 1)
+    counts = {"K1": 0, "K2": 0, "K1/K2 backward": 0}
+    for _, blocks, backward in interp_passes(cm, n_images, steps, device):
+        for b in blocks:
+            k2 = sum(s[4] for s in shapes[b])
+            counts["K1"] += len(shapes[b]) - k2
+            counts["K2"] += k2
+            counts["K1/K2 backward"] += len(shapes[b]) if backward else 0
+    return counts
+
+
+def interp_kernel_shapes(cm, n_images: int, steps: int, device) -> set:
+    """Every (M, K, C, identity, relu) that K1/K2 launch at in one
+    compute_class_circuit (:func:`interp_passes`)."""
+    shapes = set()
+    for size, blocks, _ in interp_passes(cm, n_images, steps, device):
+        per_block = block_conv_shapes(cm.cfg, size)
+        shapes.update(s[1:] for b in blocks for s in per_block[b])
+    return shapes
+
+
+def phase_interp(torch, factory, fused_conv, flash_attention, card: str):
+    """The interpretability path at full RN50 width, fp32 (see the module
+    docstring, phase 8)."""
+    import math
+
+    import numpy as np
+
+    from xclip_tpu_torch.evals.zero_shot import OpenAIZeroShotClassifier
+    from xclip_tpu_torch.interp import attribution, circuits
+    from xclip_tpu_torch.interp.circuit_model import VisualCircuitModel
+    from xclip_tpu_torch.interp.cka import class_mean_activations
+    from xclip_tpu_torch.interp.dictionary import IdentityDict
+    from xclip_tpu_torch.sae import model as sae_model
+    from xclip_tpu_torch.scripts import (analyze_sae_features, compute_circuit_similarity, compute_circuits,
+                                         compute_node_similarity, name_concepts, representational_analysis)
+    from xclip_tpu_torch.tokenizer import get_tokenizer
+
+    from xclip_tpu_torch.models.resnet import resnet_stage_names
+
+    out: dict = {"card": card, "wall_s": {}}
+    n_stages = len(resnet_stage_names(factory.get_clip_cfg("RN50").vision)) + 1  # 22 submodules with the input
+    t0 = time.perf_counter()
+    tree = os.path.join(SCRATCH, "interp_domainnet")
+    n_jpegs = make_interp_tree(tree)
+    model_dir = os.path.join(SCRATCH, "interp_rn50")
+    os.makedirs(os.path.join(model_dir, "checkpoints"))
+    ckpt = os.path.join(model_dir, "checkpoints", "epoch_32.pt")
+    interp_rn50_checkpoint(torch, factory, ckpt)
+    cka_dir = os.path.join(SCRATCH, "interp_rn50_calibrated")  # the CKA's model
+    os.makedirs(os.path.join(cka_dir, "checkpoints"))
+    interp_rn50_checkpoint(torch, factory, os.path.join(cka_dir, "checkpoints", "epoch_32.pt"), tree)
+    out["wall_s"]["setup"] = time.perf_counter() - t0
+    log(f"  {n_jpegs} JPEGs, seeded RN50 .pt and a copy with BatchNorm statistics from the tree in "
+        f"{out['wall_s']['setup']:.1f} s; class {INTERP_LABEL}, {INTERP_IMAGES} images in real and sketch (the protocol's --samples_per_class 50: "
+        f"cut to {INTERP_IMAGES}), steps {INTERP_STEPS}, node_threshold {INTERP_THRESHOLD}")
+
+    # --- compute_circuits for one class in two domains, timed by part
+    timing = {"nodes": [], "edges": []}
+    grads_seen = {}
+    orig_nodes, orig_edges = circuits.compute_nodes, circuits.compute_edges
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            start.record()
+            res = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            timing[name].append({"event_ms": start.elapsed_time(end), "wall_s": time.perf_counter() - h0})
+            if name == "nodes":
+                grads_seen.update(res[1][2])
+            return res
+        return run
+
+    circuits.compute_nodes, circuits.compute_edges = timed("nodes", orig_nodes), timed("edges", orig_edges)
+    zero_counts(fused_conv, flash_attention)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for domain in ("real", "sketch"):
+            t1 = time.perf_counter()
+            if compute_circuits.main(["--model", "RN50", "--model_dir", model_dir, "--domain", domain,
+                                      "--class_idx", str(INTERP_LABEL), "--domainnet_path", tree,
+                                      "--samples_per_class", str(INTERP_IMAGES)]) != 0:
+                fail(f"compute_circuits failed for {domain}")
+            out["wall_s"][f"compute_circuits_{domain}"] = time.perf_counter() - t1
+            bad = [name for name, g in grads_seen.items()
+                   if g is None or g.act is None or not torch_all_finite(g.act) or not bool((g.act != 0).any())]
+            if bad or len(grads_seen) != n_stages:
+                fail(f"{domain}: mean IG gradients None, non-finite or all zero at {bad} ({len(grads_seen)} stages)")
+            grads_seen.clear()
+    finally:
+        circuits.compute_nodes, circuits.compute_edges = orig_nodes, orig_edges
+    counts = train_counts(fused_conv, flash_attention)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["timing"] = timing
+
+    # the counts the chunking gives, one zero-shot head (86 templates, chunks of 2048) per CLI run
+    model = factory.create_model("RN50", pretrained=ckpt, device="cuda")
+    cfg = model.cfg
+    cm_probe = VisualCircuitModel(model, np.zeros((1, cfg.embed_dim), np.float32))
+    card_dev = next(model.parameters()).device
+    per_run = interp_counts(cm_probe, INTERP_IMAGES, INTERP_STEPS, card_dev)
+    want = {k: 2 * v for k, v in per_run.items()}
+    want["K4"] = 2 * math.ceil(INTERP_CLASSES * N_TEMPLATES / TEXT_CHUNK) * cfg.text.layers
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"phase 8 circuit counts {got} differ from the chunking's {want}")
+    out["counts"] = counts
+    for domain in ("real", "sketch"):
+        base = os.path.join(model_dir, "circuit_analysis", domain)
+        with np.load(os.path.join(base, f"{INTERP_LABEL}_edges.npz")) as z:
+            if len(z.files) != n_stages - 1 or not all(np.isfinite(z[k]).all() for k in z.files):
+                fail(f"{domain}: {len(z.files)} edge pairs, or non-finite edges")
+        with np.load(os.path.join(base, f"{INTERP_LABEL}_nodes.npz")) as z:
+            if len(z.files) != n_stages:
+                fail(f"{domain}: {len(z.files)} node sets")
+    nodes_ms = [t["event_ms"] for t in timing["nodes"]]
+    edges_ms = [t["event_ms"] for t in timing["edges"]]
+    log(f"  compute_circuits: real {out['wall_s']['compute_circuits_real']:.1f} s, sketch "
+        f"{out['wall_s']['compute_circuits_sketch']:.1f} s (wall); nodes {', '.join(f'{v:.0f}' for v in nodes_ms)} ms, "
+        f"edges {', '.join(f'{v:.0f}' for v in edges_ms)} ms (CUDA events); peak memory "
+        f"{out['peak_memory_gb']:.2f} GB; {card}")
+    log(f"  launches: K1 {counts['K1']}, K2 {counts['K2']}, MatmulAffineAct backward {counts['K1/K2 backward']}, "
+        f"K4 {counts['K4']} (the two zero-shot heads): as the chunking gives")
+    sizes = sorted({n for n, blocks, _ in interp_passes(cm_probe, INTERP_IMAGES, INTERP_STEPS, card_dev) if blocks})
+    out["kernel_shapes"] = check_fp32_shapes(
+        torch, fused_conv, interp_kernel_shapes(cm_probe, INTERP_IMAGES, INTERP_STEPS, card_dev), "circuit path",
+        f"passes of {sizes[0]} to {sizes[-1]} images or copies")
+
+    # --- node effects (2 images, all 22 stages) and one edge pair, card vs CPU
+    t1 = time.perf_counter()
+    from xclip_tpu_torch.data.datasets import DomainNetCaptions
+    from xclip_tpu_torch.data.transforms import image_transform
+
+    data = DomainNetCaptions(tree, "val", image_transform(cfg.image_size),
+                             exclude_domains=["clipart", "infograph", "painting", "quickdraw", "sketch"])
+    idx = [i for i, s in enumerate(data.samples) if s[1] == INTERP_LABEL][:INTERP_CHECK]
+    images = np.stack([data[i][0] for i in idx])
+    classes = {s[1]: s[0].split("/")[-2] for s in data.samples}
+    head = OpenAIZeroShotClassifier(model, get_tokenizer("RN50"), classes).prompt_feat
+    cpu_model = factory.create_model("RN50", pretrained=ckpt, device="cpu")
+    cms = {"cuda": VisualCircuitModel(model, head), "cpu": VisualCircuitModel(cpu_model, head)}
+    subs = [s.name for s in cms["cpu"].stages]
+    dicts = {s.name: IdentityDict(s.channels) for s in cms["cpu"].stages}
+    nodes = {}
+    for dev, cm in cms.items():
+        eff = attribution.patching_effect(images, None, cm, subs, dicts, INTERP_LABEL, steps=INTERP_STEPS).effects
+        nodes[dev] = {k: v.sum(axis=1).mean(axis=0).act.cpu().numpy() for k, v in eff.items()}
+    node_errs = {k: float(np.abs(nodes["cuda"][k] - nodes["cpu"][k]).max() / max(np.abs(nodes["cpu"][k]).max(), 1e-30))
+                 for k in subs}
+    up, down = INTERP_EDGE_CHECK
+    feats = {k: np.argsort(-np.abs(nodes["cpu"][k]))[:math.ceil(len(nodes["cpu"][k]) * INTERP_THRESHOLD)]
+             for k in (up, down)}
+    edge = {dev: attribution.upstream_neuron_attribution(images, None, cm, up, down, dicts, feats[up], feats[down],
+                                                          steps=INTERP_STEPS) for dev, cm in cms.items()}
+    edge_err = float(np.abs(edge["cuda"] - edge["cpu"]).max() / max(np.abs(edge["cpu"]).max(), 1e-30))
+    out["card_vs_cpu"] = {"node_rel_err": node_errs, "edge_rel_err": edge_err, "images": INTERP_CHECK}
+    out["wall_s"]["card_vs_cpu"] = time.perf_counter() - t1
+    worst = max(node_errs, key=node_errs.get)
+    log(f"  card vs CPU ({INTERP_CHECK} images, {n_stages} stages): node effects within {node_errs[worst]:.2e} of each "
+        f"stage's largest ({worst} worst), edge {up}->{down} within {edge_err:.2e} (tolerance {INTERP_TOL}); "
+        f"{out['wall_s']['card_vs_cpu']:.1f} s")
+    if max(node_errs.values()) > INTERP_TOL or edge_err > INTERP_TOL or not math.isfinite(edge_err):
+        fail(f"phase 8 card vs CPU: nodes {node_errs}, edge {edge_err}")
+    del cms, cpu_model
+
+    # --- node and circuit similarity over the two domains
+    t1 = time.perf_counter()
+    sims = os.path.join(SCRATCH, "interp_sims")
+    compute_node_similarity.main(["--model_dir", model_dir, "--out_path", sims])
+    for metric in ("jaccard", "wl"):
+        compute_circuit_similarity.main(["--model_dir", model_dir, "--out_path", sims, "--metric", metric])
+    with open(os.path.join(sims, "node_similarity.json")) as fh:
+        ns = json.load(fh)
+    sim = {"node": ns}
+    for metric in ("jaccard", "wl"):
+        with open(os.path.join(sims, f"circuit_similarity_{metric}.json")) as fh:
+            sim[metric] = json.load(fh)
+    vals = [v for layer in ns["ood"].values() for v in layer.values()]
+    if len(ns["ood"]) != n_stages - 1 or not all(0 <= v <= 1 for v in vals) or not all(
+            0 <= sim[m]["ood"]["real|sketch"] <= 1 + 1e-9 for m in ("jaccard", "wl")):
+        fail(f"phase 8 similarities: {sim}")
+    out["similarity"] = {"node_mean_ood": float(np.mean(vals)), "jaccard": sim["jaccard"]["ood"]["real|sketch"],
+                         "wl": sim["wl"]["ood"]["real|sketch"]}
+    out["wall_s"]["similarity"] = time.perf_counter() - t1
+    log(f"  similarity real|sketch: nodes {out['similarity']['node_mean_ood']:.3f} (mean of {n_stages - 1} stages), edges "
+        f"Jaccard {out['similarity']['jaccard']:.3f}, WL {out['similarity']['wl']:.3f}; "
+        f"{out['wall_s']['similarity']:.1f} s")
+
+    # --- CKA over the six domains, card vs CPU
+    ckas, pooled = {}, {}
+    capture = representational_analysis.capture_pooled_activations
+
+    def recording_capture(model, dataset, batch_size, num_threads):  # the card's pooled activations by domain
+        pooled[dataset.samples[0][0].split("/")[-3]] = res = capture(model, dataset, batch_size, num_threads)
+        return res
+
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        path = os.path.join(SCRATCH, f"interp_cka_{dev}")
+        representational_analysis.capture_pooled_activations = recording_capture if dev == "cuda" else capture
+        try:
+            if representational_analysis.main(["--model", "RN50", "--model_dir", cka_dir, "--domainnet_path", tree,
+                                               "--out_path", path, "--device", dev]) != 0:
+                fail(f"representational_analysis on {dev}")
+        finally:
+            representational_analysis.capture_pooled_activations = capture
+        with open(os.path.join(path, "cka_linear.json")) as fh:
+            ckas[dev] = json.load(fh)
+        out["wall_s"][f"cka_{dev}"] = time.perf_counter() - t1
+    pairs = [(ckas["cuda"][sp][layer][pair], v) for sp in ckas["cpu"] for layer in ckas["cpu"][sp]
+             for pair, v in ckas["cpu"][sp][layer].items() if math.isfinite(v)]
+    rel = [abs(got - v) / max(abs(v), INTERP_CKA_FLOOR) for got, v in pairs]
+    n_nan = sum(not math.isfinite(v) for sp in ckas["cuda"] for layer in ckas["cuda"][sp]
+                for v in ckas["cuda"][sp][layer].values())
+    median_cka = float(np.median([abs(v) for _, v in pairs])) if pairs else math.nan
+    cancel = {name: max(hsic1_cancellation(class_mean_activations(acts[name], labels))
+                        for acts, labels in pooled.values()) for name in pooled["real"][0]}
+    out["cka"] = {"max_rel_diff": max(rel, default=math.nan), "values": len(pairs), "nan": n_nan,
+                  "max_abs_diff": max((abs(got - v) for got, v in pairs), default=math.nan),
+                  "min": min((v for _, v in pairs), default=math.nan), "median": median_cka,
+                  "mean_all": float(np.nanmean([v for layer in ckas["cuda"]["all"].values() for v in layer.values()])),
+                  "hsic1_cancellation": cancel}
+    log(f"  CKA ({n_stages - 1} stages x 15 domain pairs x all/ood/id): card vs CPU within "
+        f"{out['cka']['max_rel_diff']:.2e} of max(|CPU value|, {INTERP_CKA_FLOOR}) (tolerance {INTERP_CKA_RTOL}; "
+        f"{out['cka']['max_abs_diff']:.2e} absolute) over {len(pairs)} values ({n_nan} NaN; median |CKA| "
+        f"{median_cka:.3f}, min {out['cka']['min']:.3f}), card {out['wall_s']['cka_cuda']:.1f} s, CPU "
+        f"{out['wall_s']['cka_cpu']:.1f} s; HSIC1(K, K) over a domain's class means cancels up to "
+        f"{max(cancel.values()):.3g}-fold ({max(cancel, key=cancel.get)}; {cancel['stem.act1']:.3g} at stem.act1)")
+    # a witness only where the class means carry structure: CKAs near 0 are
+    # mostly the unbiased HSIC's cancellation (ROADMAP C4)
+    if len(pairs) < (n_stages - 1) * 15 * 2 or median_cka < INTERP_CKA_MEDIAN or max(rel) > INTERP_CKA_RTOL:
+        fail(f"phase 8 CKA card vs CPU: {out['cka']}")
+
+    # --- SAE feature sharing and concept naming (a seeded 1024 -> 4096 SAE)
+    t1 = time.perf_counter()
+    sae_dir = os.path.join(SCRATCH, "interp_sae")
+    os.makedirs(os.path.join(sae_dir, "checkpoints"))
+    params = sae_model.sae_init(torch.Generator().manual_seed(21), sae_model.SAECfg(SAE_D, SAE_M, n_components=1))
+    torch.save(sae_model.sae_params_to_state_dict(params),
+               os.path.join(sae_dir, "checkpoints", "sparse_autoencoder_final.pt"))
+    fs = os.path.join(SCRATCH, "interp_fs")
+    if analyze_sae_features.main(["--ckpt_path", ckpt, "--sae_path", sae_dir, "--domainnet_path", tree,
+                                  "--out_path", fs, "--domain", "sketch", "--num_workers", "2"]) != 0:
+        fail("analyze_sae_features")
+    with open(os.path.join(fs, "feature-sharing.json")) as fh:
+        share_ = json.load(fh)
+    score = share_["score"]["mpct_shared@20"]
+    if not math.isfinite(score) or len(os.listdir(fs)) != 15 * 6 + 1:
+        fail(f"analyze_sae_features: score {score}, {len(os.listdir(fs))} files")
+    out["feature_sharing_score"] = score
+    out["wall_s"]["analyze_sae_features"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    vocab = os.path.join(SCRATCH, "interp_vocab.txt")
+    rng = np.random.RandomState(5)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    with open(vocab, "w") as fh:
+        fh.write("\n".join("".join(rng.choice(letters, rng.randint(3, 10))) for _ in range(INTERP_VOCAB)) + "\n")
+    zero_counts(fused_conv, flash_attention)
+    if name_concepts.main(["--out_dir", sae_dir, "--vocab_file", vocab, "--ckpt_path", ckpt]) != 0:
+        fail("name_concepts")
+    k4 = flash_attention.launches
+    want_k4 = math.ceil(INTERP_VOCAB / 256) * cfg.text.layers
+    with open(os.path.join(sae_dir, "concepts", "concept_names.csv")) as fh:
+        names = fh.read().splitlines()
+    if k4 != want_k4 or len(names) != SAE_M:
+        fail(f"name_concepts: K4 {k4} launches (want {want_k4}), {len(names)} names")
+    out["counts"]["K4 name_concepts"] = k4
+    out["wall_s"]["name_concepts"] = time.perf_counter() - t1
+    log(f"  feature sharing score {score:.3f} ({out['wall_s']['analyze_sae_features']:.1f} s); name_concepts: "
+        f"{len(names)} names from {INTERP_VOCAB} words, K4 {k4} launches ({out['wall_s']['name_concepts']:.1f} s)")
+    del model
+    torch.cuda.empty_cache()
+    return {"K1": counts["K1"], "K2": counts["K2"], "K4": counts["K4"] + k4,
+            "K1/K2 backward": counts["K1/K2 backward"]}, out
+
+
 def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bwd_records, bwd_errs,
-              text_layers: int, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs):
+              text_layers: int, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs, interp_counts_):
     """One entry per kernel. K1/K2 are timed over one 250-image eval batch
     (the sum over its launches of the per-shape times), K4 over one full
     text chunk (one launch per text block), K3 over one 128-image training
@@ -2540,7 +3032,10 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
     baseline's runs (phase 5f: the RN50 and ViT-B-32 classifiers'
     training, the supervised LSO evaluation) are in ``launches_by_path``
     too; K1/K2/K3's ``classifier_train_bf16`` holds phase 3d's times summed
-    over one 256-image train-mode forward of the RN50 classifier.
+    over one 256-image train-mode forward of the RN50 classifier. Phase 8's
+    interpretability path (the two class circuits, their zero-shot heads and
+    name_concepts' vocabulary) is ``interp`` in ``launches_by_path``, and the
+    circuits' MatmulAffineAct backward calls ``calls_in_interp``.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -2587,12 +3082,14 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                    **{f"tower_{name}": (r["bf16"]["launches"] + r["fp32"]["launches"]) if kid == "K4" else 0
                       for name, r in vit["towers"].items()},
                    "train_vit_b16": vit["train_counts"][kid],
-                   **{name: c[kid] for name, c in sup_counts.items()}}
+                   **{name: c[kid] for name, c in sup_counts.items()},
+                   "interp": interp_counts_.get(kid, 0)}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
             "route": "plain PyTorch in a torch.autograd.Function (no backward kernel yet)",
             "calls_in_train": (train_counts_[bwd_key] + ddp_counts[bwd_key] + vit["train_counts"][bwd_key]
                                + sum(c[bwd_key] for c in sup_counts.values())),
+            "calls_in_interp": interp_counts_.get(bwd_key, 0),
             "rel_err": bwd_errs[kid],
             "shapes": sorted({r["shape"] for r in bwd}),
             "ms_bf16": sum(r["backward_ms"] for r in bwd if r["dtype"] == "bf16"),
@@ -2755,15 +3252,23 @@ def main() -> int:
         sae["card_vs_cpu"] = phase_sae_card_vs_cpu(torch, store)
         phase_s["sae"] = time.perf_counter() - t_start - sum(phase_s.values())
 
+        log("[phase 8] interpretability path: RN50 feature circuits (IG through K1/K2, fp32), node and circuit "
+            "similarity, CKA, SAE feature sharing, concept naming")
+        interp_counts_, interp = phase_interp(torch, factory, fused_conv, flash_attention, card)
+        phase_s["interp"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"  phase 8 took {phase_s['interp']:.1f} s")
+
         kernels = summarize(report, errs, counts, tcounts, stats_records, stats_errs, bwd_records, bwd_errs,
-                            rn50.text.layers, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs)
+                            rn50.text.layers, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs,
+                            interp_counts_)
         detail = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                   "cuda": torch.version.cuda, "build_s": build_s, "kernels": kernels, "report": report,
                   "matmul_stats": stats_records, "backward": bwd_records, "main_path": rates,
                   "launches": counts, "card_vs_cpu": cross, "training": training, "train_launches": tcounts,
                   "ddp_launches": ddp_counts, "vit": vit,
                   "stream_scale": k5, "sae": sae, "sae_launches": sae_counts, "supervised": supervised,
-                  "supervised_launches": sup_counts, "classifier_shapes": sup_records,
+                  "supervised_launches": sup_counts, "classifier_shapes": sup_records, "interp": interp,
+                  "interp_launches": interp_counts_,
                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
         with open(REPORT, "w") as fh:
             json.dump(detail, fh, indent=1)

@@ -222,3 +222,75 @@ def test_check_results_reads_the_topk_keys():
     del results["imagenet-val"]["f1-score"]
     with pytest.raises(SystemExit, match="f1-score"):
         chip_smoke.check_results(results, (1, 5, 10))
+
+
+def test_interp_counts_of_rn50(monkeypatch):
+    """Phase 8's K1/K2 launches per class circuit of RN50, with every IG
+    segment in one chunk: 22 no-grad forwards of the tower (20 K1 and 16 K2
+    launches each), the nodes' passes from each of the 22 stages to the head
+    (243 K1, 200 K2) and the 21 edge segments (20 K1, 16 K2); the backward
+    calls are the IG launches. A smaller budget splits the segments into
+    more chunks, each a forward and a backward."""
+    import numpy as np
+
+    from xclip_tpu_torch.interp import attribution
+    from xclip_tpu_torch.interp.circuit_model import VisualCircuitModel
+
+    model = factory.create_model("RN50", device="cpu")
+    cm = VisualCircuitModel(model, np.zeros((1, 1024), np.float32))
+    cpu = next(model.parameters()).device
+    monkeypatch.setattr(attribution, "chunk_budget", lambda device: 1 << 60)
+    assert chip_smoke.interp_counts(cm, 16, 10, cpu) == {"K1": 440 + 243 + 20, "K2": 352 + 200 + 16,
+                                                         "K1/K2 backward": 243 + 20 + 200 + 16}
+    monkeypatch.setattr(attribution, "chunk_budget", lambda device: 1 << 30)
+    small = chip_smoke.interp_counts(cm, 16, 10, cpu)
+    assert small["K1"] - 440 == small["K1/K2 backward"] - (small["K2"] - 352) > 263
+
+
+def test_interp_kernel_shapes_of_rn50(monkeypatch):
+    """The (M, K, C) phase 8 holds K1/K2 at: with every IG segment in one
+    chunk, each bottleneck at 16 images (the clean passes) and at 160
+    copies (the nodes), and each edge's own bottleneck at its neurons'
+    copies: resblock1 at 26 x 160 of them, resblock4 (layer2.0, whose
+    conv1 runs before the stride) at 52 x 160 over 56 x 56 pixels, the
+    most rows. A smaller budget cuts the edges' rows into the chunks that
+    run."""
+    import numpy as np
+
+    from xclip_tpu_torch.interp import attribution
+    from xclip_tpu_torch.interp.circuit_model import VisualCircuitModel
+
+    model = factory.create_model("RN50", device="cpu")
+    cm = VisualCircuitModel(model, np.zeros((1, 1024), np.float32))
+    cpu = next(model.parameters()).device
+    monkeypatch.setattr(attribution, "chunk_budget", lambda device: 1 << 60)
+    shapes = chip_smoke.interp_kernel_shapes(cm, 16, 10, cpu)
+    clean = {s[1:] for s in chip_smoke.fused_conv_shapes(cm.cfg, 16)}
+    nodes = {s[1:] for s in chip_smoke.fused_conv_shapes(cm.cfg, 160)}
+    assert clean | nodes <= shapes
+    assert (26 * 160 * 56 * 56, 64, 64, False, True) in shapes  # resblock1's conv1
+    assert max(shapes) == (52 * 160 * 56 * 56, 256, 128, False, True)  # resblock4's conv1
+    assert (205 * 160 * 7 * 7, 512, 2048, True, True) in shapes  # resblock16's conv3
+    monkeypatch.setattr(attribution, "chunk_budget", lambda device: 1 << 30)
+    small = chip_smoke.interp_kernel_shapes(cm, 16, 10, cpu)
+    sizes = {size for size, blocks, _ in chip_smoke.interp_passes(cm, 16, 10, cpu) if blocks}
+    assert max(small)[0] < 26 * 160 * 56 * 56 and max(small)[0] in {n * 56 * 56 for n in sizes}
+
+
+def test_hsic1_cancellation_grows_with_a_common_offset():
+    """Phase 8's conditioning figure: 1 where no term cancels, and about
+    offset^2-fold larger when the class means share a large offset; the
+    terms' sum is the port's HSIC1(K, K) times n (n - 3)."""
+    import numpy as np
+    import torch
+
+    from xclip_tpu_torch.interp import cka
+
+    x = np.random.RandomState(0).randn(12, 6)
+    base = chip_smoke.hsic1_cancellation(x)
+    assert 1.0 <= base < 100
+    assert chip_smoke.hsic1_cancellation(x + 100.0) > 1000 * base
+    k = torch.from_numpy(x @ x.T)
+    k_t = k - torch.diag(torch.diagonal(k))
+    terms = [torch.trace(k_t @ k_t), k_t.sum() ** 2 / (11 * 10), 2.0 / 10 * (k_t @ k_t).sum()]
+    assert float(sum(abs(t) for t in terms) / (12 * 9 * cka.hsic1(k, k))) == pytest.approx(base, rel=1e-12)

@@ -721,3 +721,80 @@ def test_tiny_classifier_step_card_matches_cpu(cuda, monkeypatch, backbone):
         torch.testing.assert_close(g_gpu[name], ref, atol=1e-3 * float(ref.abs().max()) + 1e-7, rtol=0)
     for name, ref in b_cpu.items():
         torch.testing.assert_close(b_gpu[name], ref, atol=1e-5, rtol=1e-5)
+
+
+# --- interpretability slice: gradients through the eval tower ----------------
+
+def _random_bn_state_dict(model, seed):
+    gen = torch.Generator().manual_seed(seed)
+    sd = model.state_dict()
+    for key, val in sd.items():
+        if ".bn" in key or "downsample.1" in key or key.startswith("visual.bn"):
+            if key.endswith(("weight", "running_var")):
+                sd[key] = torch.rand(val.shape, generator=gen) + 0.5
+            elif key.endswith(("bias", "running_mean")):
+                sd[key] = torch.randn(val.shape, generator=gen) * 0.1
+    return sd
+
+
+@pytest.mark.gpu
+def test_eval_rn50_input_gradient_through_the_kernels(cuda, monkeypatch):
+    """The eval-mode RN50 tower (seeded, random BatchNorms) differentiated
+    with respect to its input on the card: through K1/K2 (MatmulAffineAct's
+    forward, its plain backward) against the same tower with the plain
+    forward, fp32; the input gradients within 1e-3 in relative norm; the
+    kernels launched and the Function's backward run."""
+    from xclip_tpu_torch.models import factory
+
+    model = factory.create_model("RN50", device="cpu", seed=0)
+    model.load_state_dict(_random_bn_state_dict(model, 3))
+    model = model.cuda().eval().requires_grad_(False)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 224, 224, 3).astype(np.float32)).cuda()
+
+    def input_grad():
+        xi = x.clone().requires_grad_(True)
+        model.encode_image(xi, normalize=True)[:, :7].sum().backward()
+        return xi.grad
+
+    before = fused_conv.launches, fused_conv.affine_act_backward_calls
+    got = input_grad()
+    assert fused_conv.launches == before[0] + 36  # 16 conv1, 4 downsamples, 16 conv3
+    assert fused_conv.affine_act_backward_calls == before[1] + 36
+    monkeypatch.setattr(fused_conv, "matmul_affine_act", fused_conv.matmul_affine_act_plain)
+    want = input_grad()
+    assert torch.isfinite(got).all() and float(want.abs().max()) > 0
+    assert float((got - want).norm() / want.norm()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_ig_node_effect_card_matches_cpu(cuda, monkeypatch):
+    """One IG node effect (resblock1 of a seeded tiny RN, 4 steps, 3
+    images) on the card against the CPU: within 1e-4 of the largest
+    effect."""
+    from xclip_tpu_torch.interp.attribution import patching_effect
+    from xclip_tpu_torch.interp.circuit_model import VisualCircuitModel
+    from xclip_tpu_torch.interp.dictionary import IdentityDict
+    from xclip_tpu_torch.models import factory
+
+    tiny = {"embed_dim": 32,
+            "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1], "width": 16, "patch_size": None},
+            "text_cfg": {"context_length": 16, "vocab_size": 100, "width": 32, "heads": 1, "layers": 1}}
+    monkeypatch.setitem(factory._MODEL_CONFIGS, "TinyRNig", tiny)
+    cpu = factory.create_model("TinyRNig", device="cpu", seed=0)
+    sd = _random_bn_state_dict(cpu, 4)
+    cpu.load_state_dict(sd)
+    gpu = factory.create_model("TinyRNig", device="cuda", seed=0)
+    gpu.load_state_dict(sd)
+    head = np.random.RandomState(1).randn(5, 32).astype(np.float32)
+    head /= np.linalg.norm(head, axis=1, keepdims=True)
+    images = np.random.RandomState(2).randn(3, 64, 64, 3).astype(np.float32)
+    effects = []
+    launches = fused_conv.launches
+    for model in (cpu, gpu):
+        cm = VisualCircuitModel(model, head)
+        dicts = {s.name: IdentityDict(s.channels) for s in cm.stages}
+        out = patching_effect(images, None, cm, ["resblock1"], dicts, 2, steps=4)
+        effects.append(out.effects["resblock1"].act.cpu())
+    assert fused_conv.launches > launches  # the card's forwards went through K1/K2
+    ref = effects[0]
+    assert float((effects[1] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

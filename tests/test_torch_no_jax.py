@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``xclip_tpu_torch``
 pulls in neither jax nor any module of the JAX package ``xclip_tpu``, nor
-scikit-learn (the machine with the card has none), and no source file of
-the port (or ``chip_smoke.py``) imports them."""
+scikit-learn, networkx or graphviz (the machine with the card has none of
+them), and no source file of the port (or ``chip_smoke.py``) imports them."""
 
 import pathlib
 import re
@@ -25,7 +25,8 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'xclip_tpu', 'sklearn'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'xclip_tpu', 'sklearn', 'networkx',\n"
+        "                                                        'graphviz'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
     )
@@ -34,21 +35,21 @@ def test_importing_every_module_loads_no_jax():
     assert "BAD []" in res.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|xclip_tpu|sklearn)\b(?!_torch)"
-                        r"|from\s+(jax|jaxlib|xclip_tpu|sklearn)\b(?!_torch))", re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|xclip_tpu|sklearn|networkx|graphviz)\b(?!_torch)"
+                        r"|from\s+(jax|jaxlib|xclip_tpu|sklearn|networkx|graphviz)\b(?!_torch))", re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py"))
                          + ["chip_smoke.py"])
 def test_source_has_no_jax_import(path):
     text = (ROOT / path).read_text()
-    assert not _FORBIDDEN.search(text), f"{path} imports jax, the JAX package or scikit-learn"
+    assert not _FORBIDDEN.search(text), f"{path} imports jax, the JAX package, scikit-learn, networkx or graphviz"
 
 
 def test_forbidden_pattern_catches_imports():
     for bad in ("import jax", "import jax.numpy as jnp", "from xclip_tpu.ops import x",
                 "import xclip_tpu", "  from jax import numpy", "import sklearn",
-                "    from sklearn.metrics import f1_score"):
+                "    from sklearn.metrics import f1_score", "import networkx as nx", "from graphviz import Digraph"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import xclip_tpu_torch", "from xclip_tpu_torch.ops import fused_conv",
                "# the JAX package xclip_tpu"):
@@ -60,7 +61,9 @@ def test_modules_import_and_run_with_jax_blocked():
     scikit-learn, every module of the port imports, and the slice's CPU
     paths run: the bandwidth probe, an SAE train step, resample and
     checkpoint, a ViT tower in train mode with patch dropout, a supervised
-    classifier step with its native checkpoint, and the macro F1."""
+    classifier step with its native checkpoint, the macro F1, and a tiny
+    RN's class circuit with its graph, WL similarity and DOT source, CKA
+    and concept names (networkx and graphviz refused too)."""
     code = (
         "import importlib, importlib.abc, sys\n"
         "import importlib.machinery\n"
@@ -74,7 +77,7 @@ def test_modules_import_and_run_with_jax_blocked():
         "        root = name.split('.')[0]\n"
         "        if root in ('jax', 'jaxlib', 'xclip_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
-        "        if root == 'sklearn':  # found (torch probes for it), but refused on import\n"
+        "        if root in ('sklearn', 'networkx', 'graphviz'):  # found (torch may probe), refused on import\n"
         "            return importlib.machinery.ModuleSpec(name, Refuse())\n"
         "        return None\n"
         "sys.meta_path.insert(0, Block())\n"
@@ -114,11 +117,22 @@ def test_modules_import_and_run_with_jax_blocked():
         "assert learner.load_classifier(d + '/c.npz', clf) == {'epoch': 1}\n"
         "from xclip_tpu_torch.evals.lso import f1_macro\n"
         "assert f1_macro(np.array([0, 1, 1]), np.array([0, 1, 2])) == (1 + 2 / 3 + 0) / 3\n"
-        "try:\n"
-        "    import sklearn\n"
-        "    raise AssertionError('sklearn imported')\n"
-        "except ImportError:\n"
-        "    pass\n"
+        "from xclip_tpu_torch.interp import circuit_model, circuits, cka, graph\n"
+        "from xclip_tpu_torch.sae import naming\n"
+        "cm = circuit_model.VisualCircuitModel(factory.create_model('R', device='cpu'), np.eye(3, 16, dtype=np.float32))\n"
+        "nodes, feats, edges = circuits.compute_class_circuit(cm, np.ones((1, 32, 32, 3), np.float32), 1, steps=2,\n"
+        "                                                     out_folder=d + '/circ')\n"
+        "g = graph.build_circuit_graph({k: v.act.numpy() for k, v in nodes.items()}, edges, feats)\n"
+        "assert graph.wl_kernel_similarity([g, g])[0, 1] == 1.0 and graph.render_circuit_graphviz(g, d + '/g')\n"
+        "x = np.random.RandomState(0).randn(8, 3)\n"
+        "assert abs(cka.linear_cka(x, x) - 1.0) < 1e-12\n"
+        "assert naming.decode_sae_config('ef4_lr1e-3') == {'expansion_factor': 4, 'lr': 1e-3}\n"
+        "for banned in ('sklearn', 'networkx', 'graphviz'):\n"
+        "    try:\n"
+        "        __import__(banned)\n"
+        "        raise AssertionError(banned + ' imported')\n"
+        "    except ImportError:\n"
+        "        pass\n"
         "print('OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

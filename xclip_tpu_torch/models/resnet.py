@@ -9,9 +9,13 @@ The bottleneck follows ``_bottleneck_apply_pallas`` (resnet.py:157-229).
 Activations stay in ``torch.channels_last``, so the input of each 1x1 conv
 is an ``(N*H*W, C)`` view with no copy; conv2 is a plain 3x3 conv.
 
-- Eval: conv1, the downsample conv and conv3 run through
-  :func:`ops.fused_conv.matmul_affine_act` with the BatchNorm folded into an
-  fp32 epilogue from the running statistics (conv3 adds the identity there).
+- Eval: conv1, the downsample conv and conv3 run through K1/K2 with the
+  BatchNorm folded into an fp32 epilogue from the running statistics (conv3
+  adds the identity there), by the autograd Function
+  :class:`ops.fused_conv.MatmulAffineAct` (the kernel forward, a plain
+  backward), so that gradients reach the input of an eval tower as JAX's
+  ``custom_vjp`` lets them (integrated gradients, ``interp.attribution``);
+  under ``torch.no_grad`` it records nothing and launches the same kernels.
 - Train: conv1 through :class:`ops.fused_conv.MatmulStats` (K3: the batch
   moments come out of the matmul), then the affine and relu; conv2 with
   train BatchNorm; the downsample and conv3 take their batch moments from
@@ -21,20 +25,26 @@ is an ``(N*H*W, C)`` view with no copy; conv2 is a plain 3x3 conv.
   statistics instead of writing them; the caller applies them once
   (:func:`apply_bn_moments`), so checkpoint recomputation and the no-grad
   cache pass of accumulation update nothing.
+
+In eval mode the tower is stage-addressable, as ``resnet_apply``'s
+``start``, ``stop`` and ``capture`` make JAX's: :func:`resnet_stage_names`
+lists the stages (``stem.act1-3``, ``stem.avgpool``, ``layer{s}.{b}``,
+``attnpool``) and :meth:`ModifiedResNet.run_stages` runs a range of them
+and returns the activations it was asked to capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from xclip_tpu_torch.models import layers as L
-from xclip_tpu_torch.ops.fused_conv import MatmulAffineAct, MatmulStats, matmul_affine_act
+from xclip_tpu_torch.ops.fused_conv import MatmulAffineAct, MatmulStats
 
 # BatchNorm module name (relative to the tower) -> new (running_mean, running_var)
 Moments = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -77,6 +87,16 @@ def _weight_kc(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 
 def _channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
+
+
+def resnet_stage_names(cfg: ResNetCfg) -> List[str]:
+    """The tower's sequential stages (``resnet.resnet_stage_names``): the
+    circuit and CKA granularity of the reference."""
+    names = ["stem.act1", "stem.act2", "stem.act3", "stem.avgpool"]
+    for i, blocks in enumerate(cfg.layers):
+        names += [f"layer{i + 1}.{b}" for b in range(blocks)]
+    names.append("attnpool")
+    return names
 
 
 @torch.no_grad()
@@ -169,7 +189,7 @@ class Bottleneck(nn.Module):
         n, cin, h, w = x.shape
         dt = x.dtype
         g1, b1 = L.bn_factors(self.bn1)
-        out = matmul_affine_act(_as_rows(x), _weight_kc(self.conv1, dt), g1, b1, relu=True)
+        out = MatmulAffineAct.apply(_as_rows(x), _weight_kc(self.conv1, dt), g1, b1, None, True)
         out = _from_rows(out, n, h, w)
 
         out = L.conv2d(out, self.conv2.weight, padding=1)
@@ -182,12 +202,12 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             idin = _channels_last(L.avg_pool(x, self.stride)) if self.stride > 1 else x
             gd, bd = L.bn_factors(self.downsample[1])
-            identity = matmul_affine_act(_as_rows(idin), _weight_kc(self.downsample[0], dt), gd, bd,
-                                         relu=False)
+            identity = MatmulAffineAct.apply(_as_rows(idin), _weight_kc(self.downsample[0], dt), gd, bd, None,
+                                             False)
         else:
             identity = _as_rows(x)
         g3, b3 = L.bn_factors(self.bn3)
-        out = matmul_affine_act(_as_rows(out), _weight_kc(self.conv3, dt), g3, b3, identity, relu=True)
+        out = MatmulAffineAct.apply(_as_rows(out), _weight_kc(self.conv3, dt), g3, b3, identity, True)
         return _from_rows(out, n, oh, ow)
 
 
@@ -265,26 +285,19 @@ class ModifiedResNet(nn.Module):
         relative to this module) for :func:`apply_bn_moments`.
         ``grad_checkpointing`` recomputes each bottleneck in the backward
         (``jax.checkpoint`` per block, resnet.py:360-398)."""
-        x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        if dtype is not None:
-            x = x.to(dtype)
-        x = _channels_last(x)
+        if not self.training:
+            return self.run_stages(images, dtype=dtype)[0]
+        x = _channels_last(self._image_nchw(images, dtype))
         new: Moments = {}
         for i, (conv, bn) in enumerate(((self.conv1, self.bn1), (self.conv2, self.bn2),
                                         (self.conv3, self.bn3))):
             x = L.conv2d(x, conv.weight, stride=2 if i == 0 else 1, padding=1)
-            if self.training:
-                x, new[f"bn{i + 1}"] = L.batchnorm_train(x, bn)
-            else:
-                x = L.batchnorm_eval(x, bn)
+            x, new[f"bn{i + 1}"] = L.batchnorm_train(x, bn)
             x = torch.relu(x)
         x = _channels_last(L.avg_pool(x, 2))
-        remat = grad_checkpointing and self.training and torch.is_grad_enabled()
+        remat = grad_checkpointing and torch.is_grad_enabled()
         for si, stage in enumerate((self.layer1, self.layer2, self.layer3, self.layer4)):
             for bi, block in enumerate(stage):
-                if not self.training:
-                    x = block(x)
-                    continue
                 if remat:
                     x, block_moments = _checkpoint(block.forward_train, x, use_reentrant=False)
                 else:
@@ -293,3 +306,46 @@ class ModifiedResNet(nn.Module):
         if moments is not None:
             moments.update(new)
         return self.attnpool(x, dtype=dtype)
+
+    @staticmethod
+    def _image_nchw(images: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+        x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        return x.to(dtype) if dtype is not None else x
+
+    def run_stages(self, x: torch.Tensor, *, start: int = 0, stop: Optional[int] = None,
+                   capture: Sequence[str] = (), dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Eval mode: run stages ``start:stop`` of :func:`resnet_stage_names`
+        (``resnet_apply``'s ``start``, ``stop`` and ``capture``) -> (output,
+        {captured stage name: its output}).
+
+        ``x`` is the input of stage ``start``: the (N, H, W, 3) NHWC image
+        for ``start=0``, else the output of stage ``start - 1``: (N, C, H, W)
+        (made ``channels_last``) or, before nothing, attnpool's (N, D)."""
+        if self.training:
+            raise RuntimeError("run_stages is the eval-mode tower; call .eval() first")
+        names = resnet_stage_names(self.cfg)
+        stop = len(names) if stop is None else stop
+        if start == 0:
+            x = self._image_nchw(x, dtype)
+        elif dtype is not None:
+            x = x.to(dtype)
+        if x.dim() == 4:
+            x = _channels_last(x)
+        inters: Dict[str, torch.Tensor] = {}
+        for name in names[start:stop]:
+            if name.startswith("stem.act"):
+                i = int(name[-1])
+                conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+                x = L.conv2d(x, conv.weight, stride=2 if i == 1 else 1, padding=1)
+                x = torch.relu(L.batchnorm_eval(x, bn))
+            elif name == "stem.avgpool":
+                x = _channels_last(L.avg_pool(x, 2))
+            elif name == "attnpool":
+                x = self.attnpool(x, dtype=dtype)
+            else:
+                stage, block = name.split(".")
+                x = getattr(self, stage)[int(block)](x)
+            if name in capture:
+                inters[name] = x
+        return x, inters
