@@ -157,7 +157,35 @@ Phases, each fatal on failure:
    on the CPU (``cka_linear.json`` compared value by value); ``analyze_sae_features`` with a seeded
    1024 -> 4096 SAE and ``name_concepts`` over a written 1,000-word
    vocabulary (exact K4 launches);
-9. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+9. data fabrication at DomainNet's size (index files, no images, host
+   only): seeded lists of DomainNet's 586,575 rows over 345 classes (the
+   LSO classes at their indices), 10,000 ImageNet-Captions entries (the
+   dataset's 463,622: cut), ImageNet-Sketch's 50,889 files and 300,000
+   CC3M rows (of 3.3 M: cut); the three caption generators, the seven
+   ``PAPER_MIXTURES`` through ``subsample_domainnet_lso``, ``merge_ccxm``,
+   ``add_in_sketches`` and ``mix_in_sketches``, each timed (rows/s); row
+   counts against the reference-size rule, no LSO class left in the
+   excluded domain, the identifiers;
+10. RN50 training from tar shards at full width: a seeded chain of
+   256-px JPEGs (DomainNet captions, ImageNet-Captions with ``.json``
+   sidecars, the ``lso-cipqrs-nosketchclasses`` mixture) written as
+   ``.jpg`` + ``.json`` shards with one corrupt sample; a reader pass
+   skips and logs exactly that one; the trainer's first batch (one worker)
+   equals the reader's first samples; the loader's host rate; then
+   ``train.main --json-captions`` at batch 128 x accum 2, amp, grad
+   checkpointing, local loss, gather-with-grad, 4 steps, plain and
+   resampled over two ``::`` sources with ``--train-data-upsampling-factors``:
+   finite losses, ``epoch_1.pt`` loads, K1-K4 and the backwards launched
+   exactly as the TSV path at 4 steps;
+11. the embedding analysis: ``save_domainnet_features`` over phase 7's
+   tree and RN50 (fp32, exact K1/K2) and ``embedding_analysis`` on it;
+   then the script at its cap on seeded 20,000 x 1024 features in six
+   clusters of different density: its wall; the kNN and the layout timed
+   by CUDA events, the fuzzy set and the spectral initialisation on the
+   host, in a replay that must equal the script's embedding bit for bit
+   (and two layouts each other); at n = 2,000 the kNN card vs CPU and the
+   layout gradient along 10 epochs with equal negatives;
+12. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package. Per-shape numbers also go
 to ``build/chip_smoke_report.json`` (nvcc's register/spill report is
@@ -168,6 +196,7 @@ to ``build/chip_smoke_report.json`` (nvcc's register/spill report is
 from __future__ import annotations
 
 import ast
+import itertools
 import json
 import logging
 import math
@@ -3014,8 +3043,583 @@ def phase_interp(torch, factory, fused_conv, flash_attention, card: str):
             "K1/K2 backward": counts["K1/K2 backward"]}, out
 
 
+FAB_DN_COUNTS = {  # DomainNet's published (train, test) images per domain: 586,575 rows
+    "clipart": (33525, 14604), "infograph": (36023, 15582), "painting": (50416, 21850),
+    "quickdraw": (120750, 51750), "real": (120906, 52041), "sketch": (48212, 20916)}
+FAB_IN_CAPTIONS = 10_000   # ImageNet-Captions entries (the dataset has 463,622: cut, each costs three file operations)
+FAB_IN_SKETCH = 50_889     # ImageNet-Sketch's images over its 1,000 classes
+FAB_CC3M = 300_000         # cc3m-train.tsv rows (CC3M has 3.3 M: cut)
+FAB_MIXTURES = (           # PAPER_MIXTURES, as subsample_domainnet_lso builds each
+    ("lso-rs-nosketchclasses", dict(exclude="sketch", single_domain=True, subsample=True)),
+    ("lso-cipqrs-nosketchclasses", dict(exclude="sketch", subsample=True)),
+    ("lso-cipqr-nosketchclasses", dict(exclude="sketch", exclude_domains=["sketch"], subsample=True)),
+    ("lso-cr-noclipartclasses", dict(exclude="clipart", single_domain=True, subsample=True)),
+    ("lso-cipqrs-noclipartclasses", dict(exclude="clipart", subsample=True)),
+    ("lso-ipqrs-noclipartclasses", dict(exclude="clipart", exclude_domains=["clipart"], subsample=True)),
+    ("lso-real-only", dict(real_only=True)),
+)
+WDS_STEPS = 4              # phase 10: one epoch of --train-num-samples 1024 at batch 128 x accum 2
+WDS_SHARD = 512            # samples per tar shard
+UMAP_N, UMAP_D = 20000, 1024  # phase 11: embedding_analysis at its own --max_points, RN50's width
+UMAP_CHECK_N = 2000        # kNN and layout held card vs CPU on the first rows
+UMAP_KNN_RTOL = 1e-4       # distances: the fp32 expansion |r|^2 - 2 r.x + |x|^2 rounds differently
+UMAP_GRAD_TOL = 1e-4       # a layout epoch's gradient, card vs CPU, in relative norm
+UMAP_CHECK_EPOCHS = 10
+
+
+def imagenet_wnids() -> list:
+    with open(os.path.join(REPO, "data", "imagenet_class_index.json")) as fh:
+        index = json.load(fh)
+    return [index[str(i)][0] for i in range(len(index))]
+
+
+def lso_class_names(lso_class_to_idx) -> list:
+    """345 DomainNet class folder names, the LSO classes at their indices."""
+    names = [f"thing_{i}" for i in range(N_DOMAINNET_CLASSES)]
+    for cls, idx in lso_class_to_idx.items():
+        names[idx] = cls.replace(" ", "_")
+    return names
+
+
+def make_fabrication_inputs(root: str, lso_class_to_idx) -> dict:
+    """DomainNet's lists at its published size, an ImageNet-Captions JSON
+    and split of FAB_IN_CAPTIONS (empty) images, an ImageNet-Sketch tree of
+    FAB_IN_SKETCH empty files and a CC3M list; all seeded. Returns the
+    rows per (domain, split, class)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    names = lso_class_names(lso_class_to_idx)
+    dn = os.path.join(root, "domainnet")
+    os.makedirs(dn)
+    per_class = {}
+    for domain, totals in FAB_DN_COUNTS.items():
+        for split, total in zip(("train", "test"), totals):
+            counts = 5 + np.floor(rng.dirichlet(np.full(N_DOMAINNET_CLASSES, 2.0))
+                                  * (total - 5 * N_DOMAINNET_CLASSES)).astype(int)
+            counts[: total - counts.sum()] += 1
+            per_class[domain, split] = counts
+            with open(os.path.join(dn, f"{domain}_{split}.txt"), "w") as fh:
+                fh.writelines(f"{domain}/{names[c]}/{domain}_{c:03d}_{j:06d}.jpg {c}\n"
+                              for c in range(N_DOMAINNET_CLASSES) for j in range(counts[c]))
+    wnids = imagenet_wnids()
+    imagenet = os.path.join(root, "imagenet")
+    in_train = os.path.join(imagenet, "captions")  # ImageNet-Captions' images, <wnid>/<file>
+    for w in wnids:
+        os.makedirs(os.path.join(in_train, w))
+        os.makedirs(os.path.join(imagenet, "sketch", w))
+    samples, split = [], {"train": [], "val": []}
+    for i in range(FAB_IN_CAPTIONS):
+        wnid, fname = wnids[i % len(wnids)], f"{wnids[i % len(wnids)]}_{i}.JPEG"
+        open(os.path.join(in_train, wnid, fname), "wb").close()
+        samples.append({"wnid": wnid, "filename": fname, "title": f"Photo  {i}",
+                        "tags": [f"tag{i % 97}", "flickr"], "description": f"line one\nline two {i}"})
+        split["train" if i % 10 else "val"].append(fname)
+    with open(os.path.join(root, "imagenet_captions.json"), "w") as fh:
+        json.dump(samples, fh)
+    with open(os.path.join(root, "imagenet_captions_split.json"), "w") as fh:
+        json.dump(split, fh)
+    for j in range(FAB_IN_SKETCH):
+        open(os.path.join(imagenet, "sketch", wnids[j % len(wnids)], f"sketch_{j}.JPEG"), "wb").close()
+    indices = os.path.join(root, "indices")
+    os.makedirs(indices)
+    with open(os.path.join(indices, "cc3m-train.tsv"), "w") as fh:
+        fh.write("filepath\ttitle\n")
+        fh.writelines(f"/data/cc3m/{i // 10000:03d}/{i:07d}.jpg\ta web image number {i}.\n" for i in range(FAB_CC3M))
+    return {"dn": dn, "imagenet": imagenet, "in_train": in_train, "indices": indices, "per_class": per_class}
+
+
+def count_lines(path: str) -> int:
+    with open(path, "rb") as fh:
+        return sum(1 for _ in fh)
+
+
+def phase_fabrication():
+    """Phase 9: data fabrication at DomainNet's size (index files, no
+    images): captions, the seven paper mixtures, the CC3M merge and the
+    ImageNet-Sketch mixes; row counts against the reference-size rule."""
+    from xclip_tpu_torch.data import captions, lso, mixtures
+    from xclip_tpu_torch.evals.lso import LSO_CLASS_TO_IDX
+
+    root = os.path.join(SCRATCH, "fabrication")
+    t0 = time.perf_counter()
+    inp = make_fabrication_inputs(root, LSO_CLASS_TO_IDX)
+    setup_s = time.perf_counter() - t0
+    n_dn = sum(sum(v) for v in FAB_DN_COUNTS.values())
+    log(f"  inputs: {n_dn} DomainNet rows, {FAB_IN_CAPTIONS} ImageNet-Captions files, {FAB_IN_SKETCH} "
+        f"ImageNet-Sketch files, {FAB_CC3M} CC3M rows in {setup_s:.1f} s")
+    steps = {}
+
+    def timed(name: str, rows: int, fn):
+        t = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t
+        steps[name] = {"s": dt, "rows": rows, "rows_per_s": rows / dt}
+        log(f"  {name}: {rows} rows in {dt:.2f} s ({rows / dt:,.0f} rows/s)")
+        return out
+
+    dn, indices, imagenet, per_class = inp["dn"], inp["indices"], inp["imagenet"], inp["per_class"]
+    timed("generate_domainnet_captions", 2 * n_dn, lambda: captions.generate_domainnet_captions(dn))
+    for domain, (n_train, n_test) in FAB_DN_COUNTS.items():
+        for sub in ("", "aligned-captions"):
+            got = (count_lines(os.path.join(dn, sub, f"{domain}_train.tsv")),
+                   count_lines(os.path.join(dn, sub, f"{domain}_test.tsv")))
+            if got != (n_train, n_test):
+                fail(f"{sub or 'captions'} {domain}: {got} rows, lists hold {(n_train, n_test)}")
+        if not os.path.islink(os.path.join(dn, "aligned-captions", domain)):
+            fail(f"aligned-captions/{domain} is not a symlink")
+    split = os.path.join(SCRATCH, "fabrication", "imagenet_captions_split.json")
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="Filename")  # every entry is in the split: none may be skipped
+        timed("generate_imagenet_captions", FAB_IN_CAPTIONS, lambda: captions.generate_imagenet_captions(
+            inp["in_train"], os.path.join(root, "imagenet_captions.json"), split, indices))
+    n_in_train = count_lines(os.path.join(indices, "in-captions-train.tsv")) - 1
+    n_in_val = count_lines(os.path.join(indices, "in-captions-val.tsv")) - 1
+    first = os.path.join(inp["in_train"], imagenet_wnids()[0], f"{imagenet_wnids()[0]}_0.JPEG")
+    with open(first[:-len(".JPEG")] + ".json") as fh:
+        sidecar = json.load(fh)
+    if (n_in_train, n_in_val) != (FAB_IN_CAPTIONS * 9 // 10, FAB_IN_CAPTIONS // 10) or \
+            sidecar != {"caption": "Photo 0; tag0 flickr; line one line two 0"}:
+        fail(f"in-captions rows {n_in_train}/{n_in_val}, sidecar {sidecar}")
+    timed("generate_sketch_captions", FAB_IN_SKETCH, lambda: captions.generate_sketch_captions(imagenet))
+    if count_lines(os.path.join(imagenet, "in-sketch-captions.tsv")) != FAB_IN_SKETCH + 1:
+        fail("in-sketch-captions.tsv rows")
+
+    lso_idx = set(LSO_CLASS_TO_IDX.values())
+    train = {d: per_class[d, "train"] for d in FAB_DN_COUNTS}
+    mixture_rows = {}
+    for ident, kw in FAB_MIXTURES:
+        # rows read: train (and the reference's) and val lists of the domains kept
+        kept = [d for d in FAB_DN_COUNTS if not kw.get("real_only") or d == "real"]
+        read = sum(sum(FAB_DN_COUNTS[d]) for d in kept)
+        got = timed(f"subsample_domainnet_lso {ident}", read, lambda: lso.subsample_domainnet_lso(dn, indices, **kw))
+        if got != ident:
+            fail(f"identifier {got}, expected {ident}")
+        with open(os.path.join(indices, f"dn-captions-train-{ident}.tsv")) as fh:
+            rows = fh.read().splitlines()[1:]
+        exclude = kw.get("exclude")
+        if exclude is None:
+            want = int(train["real"].sum())
+        else:  # the single-rendition reference: real, and the excluded domain without the LSO classes
+            want = int(train["real"].sum() + sum(n for c, n in enumerate(train[exclude]) if c not in lso_idx))
+            lso_names = {c.replace(" ", "_") for c in LSO_CLASS_TO_IDX}
+            leaked = sum(1 for r in rows if f"/{exclude}/" in r and r.split("\t")[0].split("/")[-2] in lso_names)
+            if leaked:
+                fail(f"{ident}: {leaked} rows of LSO classes in {exclude}")
+        if len(rows) != want:
+            fail(f"{ident}: {len(rows)} train rows, the reference-size rule gives {want}")
+        if count_lines(os.path.join(indices, f"combined-captions-train-{ident}.tsv")) != 1 + n_in_train + len(rows):
+            fail(f"combined-captions-train-{ident}.tsv rows")
+        mixture_rows[ident] = len(rows)
+    log(f"  mixture train rows {mixture_rows} (reference-size rule held)")
+    timed("merge_ccxm cc3m", sum(FAB_CC3M + n for n in mixture_rows.values()),
+          lambda: mixtures.merge_ccxm("cc3m", indices, [m for m, _ in FAB_MIXTURES]))
+    for ident, n in mixture_rows.items():
+        if count_lines(os.path.join(indices, f"cc3m-train-{ident}.tsv")) != 1 + FAB_CC3M + n:
+            fail(f"cc3m-train-{ident}.tsv rows")
+    mapping = os.path.join(REPO, "data", "in_to_dn_mapping.json")
+    combined = {i: 1 + n_in_train + n for i, n in mixture_rows.items()}
+    names3 = ("lso-real-only", "lso-cipqr-nosketchclasses", "lso-cipqrs-nosketchclasses")
+    timed("add_in_sketches", sum(combined[i] for i in names3),
+          lambda: mixtures.add_in_sketches(imagenet, indices, mapping))
+    for ident in names3:
+        if count_lines(os.path.join(indices, f"combined-captions-train-{ident}-with-in-sketches.tsv")) != combined[ident]:
+            fail(f"{ident}-with-in-sketches rows differ from the mixture's")
+    timed("mix_in_sketches", 7 * combined["lso-cipqrs-nosketchclasses"],
+          lambda: mixtures.mix_in_sketches(imagenet, indices, mapping))
+    for mode in ("fiftyp", "twentyfivep", "thirtyp", "tenp", "fivep", "onep", "one"):
+        path = os.path.join(indices, f"combined-captions-train-lso-cipqrs-nosketchclasses-with-in-sketches-{mode}.tsv")
+        if count_lines(path) != combined["lso-cipqrs-nosketchclasses"]:
+            fail(f"mix_in_sketches {mode} rows")
+    wall = sum(s["s"] for s in steps.values())
+    log(f"  fabrication steps {wall:.1f} s (inputs {setup_s:.1f} s more)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"steps": steps, "setup_s": setup_s, "wall_s": wall, "mixture_train_rows": mixture_rows,
+            "dn_rows": n_dn, "in_captions": FAB_IN_CAPTIONS, "in_sketch": FAB_IN_SKETCH, "cc3m_rows": FAB_CC3M}
+
+
+def make_wds_chain(root: str, lso_class_to_idx) -> dict:
+    """The fabrication chain at image level: a seeded DomainNet tree of
+    256-px JPEGs (345 classes; per class 3 real, 2 sketch, 1-2 other train
+    images; one of each in test, as lists only), its captions, 200
+    ImageNet-Captions JPEGs with their TSVs and ``.json`` sidecars, the
+    ``lso-cipqrs-nosketchclasses`` mixture, and its combined train TSV
+    written as tar shards of ``.jpg`` + ``.json`` (the sidecar for the
+    ImageNet rows); one sample's JPEG cut in half."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    from xclip_tpu_torch.data import captions, lso
+
+    rng = np.random.RandomState(0)
+    pool = []
+    for _ in range(64):
+        img = rng.randint(0, 256, (256, 256, 3)).astype(np.int32) // 2 + rng.randint(0, 128, (1, 1, 3))
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        pool.append(buf.getvalue())
+    names = lso_class_names(lso_class_to_idx)
+    dn = os.path.join(root, "domainnet")
+    per_domain = {"clipart": 1, "infograph": 2, "painting": 1, "quickdraw": 2, "real": 3, "sketch": 2}
+    for domain, n in per_domain.items():
+        for split, count in (("train", n), ("test", 1)):
+            lines = []
+            for c, name in enumerate(names):
+                os.makedirs(os.path.join(dn, domain, name), exist_ok=True)
+                for j in range(count):
+                    rel = f"{domain}/{name}/{split}{j}.jpg"
+                    if split == "train":
+                        with open(os.path.join(dn, rel), "wb") as fh:
+                            fh.write(pool[rng.randint(len(pool))])
+                    lines.append(f"{rel} {c}\n")
+            with open(os.path.join(dn, f"{domain}_{split}.txt"), "w") as fh:
+                fh.writelines(lines)
+    captions.generate_domainnet_captions(dn)
+    wnids = imagenet_wnids()[:50]
+    in_train = os.path.join(root, "imagenet", "captions")
+    samples, split = [], {"train": [], "val": []}
+    for i in range(200):
+        os.makedirs(os.path.join(in_train, wnids[i % 50]), exist_ok=True)
+        fname = f"{wnids[i % 50]}_{i}.JPEG"
+        with open(os.path.join(in_train, wnids[i % 50], fname), "wb") as fh:
+            fh.write(pool[rng.randint(len(pool))])
+        samples.append({"wnid": wnids[i % 50], "filename": fname, "title": f"photo {i}", "tags": ["t"],
+                        "description": "a flickr photo"})
+        split["train" if i % 10 else "val"].append(fname)
+    for name, obj in (("c.json", samples), ("s.json", split)):
+        with open(os.path.join(root, name), "w") as fh:
+            json.dump(obj, fh)
+    indices = os.path.join(root, "indices")
+    captions.generate_imagenet_captions(in_train, os.path.join(root, "c.json"), os.path.join(root, "s.json"), indices)
+    ident = lso.subsample_domainnet_lso(dn, indices, exclude="sketch", subsample=True)
+    with open(os.path.join(indices, f"combined-captions-train-{ident}.tsv")) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh.readlines()[1:]]
+    shards = os.path.join(root, "shards")
+    os.makedirs(shards)
+    keys, corrupt = [], None
+    n_shards = math.ceil(len(rows) / WDS_SHARD)
+    for s in range(n_shards):
+        with tarfile.open(os.path.join(shards, f"dn-{s:03d}.tar"), "w") as tf:
+            for i in range(s * WDS_SHARD, min(len(rows), (s + 1) * WDS_SHARD)):
+                path, caption = rows[i]
+                with open(path, "rb") as fh:
+                    jpg = fh.read()
+                sidecar = os.path.splitext(path)[0] + ".json"
+                if "/captions/" in path:  # generate_imagenet_captions wrote it
+                    with open(sidecar, "rb") as fh:
+                        meta = fh.read()
+                else:
+                    meta = json.dumps({"caption": caption}).encode()
+                key = f"{i:07d}"
+                if s == 1 and i == (s * WDS_SHARD + 17):
+                    jpg, corrupt = jpg[: len(jpg) // 2], key
+                for suffix, data in (("jpg", jpg), ("json", meta)):
+                    info = tarfile.TarInfo(f"{key}.{suffix}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                keys.append(key)
+    return {"shards": shards, "n_shards": n_shards, "keys": keys, "corrupt": corrupt, "identifier": ident,
+            "rows": len(rows), "captions": {f"{i:07d}": r[1] for i, r in enumerate(rows)}}
+
+
+def read_train_log(path: str) -> tuple:
+    """(log lines, losses, the lines' samples/s) of a train.main run."""
+    with open(path) as fh:
+        lines = [ln for ln in fh.read().splitlines() if "Train Epoch:" in ln]
+    losses = [float(ln.split("Loss: ")[1].split()[0]) for ln in lines]
+    rates = [float(ln.split("Batch (t): ")[1].split(",")[1].split("/s")[0]) for ln in lines]
+    return lines, losses, rates
+
+
+def phase_wds_train(torch, factory, train_main, fused_conv, flash_attention, rn50):
+    """Phase 10: RN50 training at full width from tar shards: the CLI plain
+    and resampled with weights over two ``::`` sources; a corrupt sample
+    skipped and logged; the first batch against the reader's own."""
+    import numpy as np
+
+    from xclip_tpu_torch.data import wds
+    from xclip_tpu_torch.data.transforms import image_transform
+    from xclip_tpu_torch.evals.lso import LSO_CLASS_TO_IDX
+    from xclip_tpu_torch.parallel.distributed import DistInfo
+    from xclip_tpu_torch.tokenizer import get_tokenizer
+    from xclip_tpu_torch.train.params import parse_args
+
+    root = os.path.join(SCRATCH, "wds")
+    t0 = time.perf_counter()
+    chain = make_wds_chain(root, LSO_CLASS_TO_IDX)
+    n_samples = WDS_STEPS * TRAIN_BATCH * TRAIN_ACCUM
+    log(f"  chain: {chain['identifier']} ({chain['rows']} rows, captions and .json sidecars) as "
+        f"{chain['n_shards']} shards in {time.perf_counter() - t0:.1f} s; corrupt sample {chain['corrupt']}")
+    if chain["rows"] < n_samples + 100:
+        fail(f"the mixture has {chain['rows']} rows, fewer than an epoch of {n_samples}")
+    url = os.path.join(chain["shards"], f"dn-{{000..{chain['n_shards'] - 1:03d}}}.tar")
+
+    # a corrupt sample is skipped and logged, and nothing else is dropped
+    with _LogCollector() as logs:
+        got = [(s["__key__"], s["text"]) for s in wds.WebDatasetReader(url, json_caption_key="caption")]
+    skipped = [m for m in logs.messages if "Handling tar-pipeline error" in m]
+    want = [k for k in chain["keys"] if k != chain["corrupt"]]
+    if [k for k, _ in got] != want or len(skipped) != 1:
+        fail(f"reader: {len(got)} samples of {len(chain['keys'])}, {len(skipped)} logged errors; expected all but "
+             f"{chain['corrupt']} and one")
+    if any(text != chain["captions"][k] for k, text in got):
+        fail("a --json-captions caption differs from the mixture TSV's")
+
+    flags = ["--model", "RN50", "--json-captions", "--train-num-samples", str(n_samples),
+             "--batch-size", str(TRAIN_BATCH), "--accum-freq", str(TRAIN_ACCUM), "--precision", "amp",
+             "--grad-checkpointing", "--local-loss", "--gather-with-grad", "--warmup", "2", "--lr", "1e-3",
+             "--epochs", "1", "--log-every-n-steps", "1", "--seed", "0"]
+    common = flags + ["--workers", "8", "--logs", os.path.join(root, "logs"), "--device", "cuda"]
+    # the first batch of the trainer's loader (get_data, no worker threads) against the reader's own
+    args = parse_args(["--train-data", url, *flags, "--workers", "0"])
+    tokenizer = get_tokenizer("RN50")
+    loader = train_main.get_data(args, image_transform(rn50.image_size, is_train=True, seed=0), None, tokenizer,
+                                 False, DistInfo.current())["train"]
+    batch = next(iter(loader))
+    ref = wds.WebDatasetReader(url, transform=image_transform(rn50.image_size, is_train=True, seed=0), shuffle=True,
+                               seed=0, json_caption_key="caption")
+    ref_items = list(itertools.islice(iter(ref), TRAIN_BATCH * TRAIN_ACCUM))
+    first_keys = [s["__key__"] for s in ref_items]
+    if not (np.array_equal(batch["images"], np.stack([s["image"] for s in ref_items]))
+            and np.array_equal(batch["texts"], tokenizer([s["text"] for s in ref_items]))):
+        fail("the trainer's first batch differs from the reader's own at one worker")
+    log(f"  first batch (get_data, --workers 0) equals the reader's first {len(first_keys)} samples: "
+        f"keys {first_keys[:4]} ... {first_keys[-2:]}")
+    # the loader's host rate with the CLI's 8 threads: decode, crop, tokenize
+    args8 = parse_args(["--train-data", url, *flags, "--workers", "8"])
+    loader8 = train_main.get_data(args8, image_transform(rn50.image_size, is_train=True, seed=0), None, tokenizer,
+                                  False, DistInfo.current())["train"]
+    t0 = time.perf_counter()
+    n_host = sum(b["images"].shape[0] for b in loader8)
+    host_s = time.perf_counter() - t0
+    log(f"  loader alone (8 threads): {n_host} images in {host_s:.2f} s, {n_host / host_s:.1f} img/s on the host")
+
+    runs = {}
+    sources = f"{chain['shards']}/dn-000.tar::{chain['shards']}/dn-002.tar"
+    for name, data in (("wds", ["--train-data", url]),
+                       ("wds_resampled", ["--dataset-type", "webdataset", "--train-data", sources,
+                                          "--dataset-resampled", "--train-data-upsampling-factors", "1::2"])):
+        torch.cuda.synchronize()
+        zero_counts(fused_conv, flash_attention)
+        t0 = time.perf_counter()
+        with _LogCollector() as logs:
+            rc = train_main.main([*data, *common, "--name", name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = train_counts(fused_conv, flash_attention)
+        want = train_path_counts(rn50, WDS_STEPS, TRAIN_ACCUM)
+        lines, losses, rates = read_train_log(os.path.join(root, "logs", name, "out.log"))
+        skipped = sum("Handling tar-pipeline error" in m for m in logs.messages)
+        log(f"  train.main {name}: rc {rc}, {len(lines)} steps in {wall:.1f} s (model, loader and first step "
+            f"included); losses {[round(v, 4) for v in losses]}; samples/s by step {rates}; corrupt samples met "
+            f"{skipped}; launches {counts} (expected {want}, the TSV path's at {WDS_STEPS} steps)")
+        if rc != 0 or len(lines) != WDS_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: rc {rc}, {len(lines)} log lines, losses {losses}")
+        if counts != want:
+            fail(f"{name}: launches {counts} differ from the TSV path's {want}")
+        if skipped > 1:
+            fail(f"{name}: {skipped} samples skipped, the shards hold one corrupt sample")
+        ckpt = os.path.join(root, "logs", name, "checkpoints", "epoch_1.pt")
+        model = factory.create_model("RN50", pretrained=ckpt, device="cuda")
+        with torch.inference_mode():
+            feats = model.encode_image(torch.randn(4, rn50.image_size, rn50.image_size, 3, device="cuda"),
+                                       normalize=True, dtype=torch.bfloat16)
+        if not torch_all_finite(feats):
+            fail(f"{name}: epoch_1.pt gives non-finite features")
+        del model
+        torch.cuda.empty_cache()
+        runs[name] = {"counts": counts, "losses": losses, "samples_per_s": rates, "wall_s": wall,
+                      "corrupt_met": skipped, "log_lines": lines}
+    shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(r["counts"][k] for r in runs.values()) for k in runs["wds"]["counts"]}
+    return total, {"runs": runs, "first_batch_keys": first_keys, "host_images_per_s": n_host / host_s,
+                   "host_s": host_s, "rows": chain["rows"], "shards": chain["n_shards"]}
+
+
+def umap_clusters(n: int, d: int, seed: int = 0):
+    """Six seeded Gaussian clusters whose scales differ 6-fold."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = np.arange(n) % 6
+    centers = rng.randn(6, d) * 3
+    scales = np.array([0.5, 0.75, 1.0, 1.5, 2.0, 3.0])
+    return (centers[labels] + scales[labels, None] * rng.randn(n, d)).astype(np.float32), labels
+
+
+def layout_grad(torch, umap, y, t, neg_tail, ab, densmap: bool):
+    """The gradient of the layout loss at ``y`` (tensors ``t`` on y's device)."""
+    y = y.detach().requires_grad_(True)
+    loss = umap.layout_loss(y, t["head"], t["tail"], t["weight"], t["neg_head"], neg_tail, t["log_r"], *ab, densmap, 2.0)
+    return torch.autograd.grad(loss, y)[0]
+
+
+def umap_card_vs_cpu(torch, umap, x):
+    """kNN, one layout epoch's gradient and 10 epochs step by step, card vs
+    CPU with equal negatives, at the first UMAP_CHECK_N points."""
+    import numpy as np
+
+    x = x[:UMAP_CHECK_N]
+    got_d, got_i = umap.exact_knn(torch.from_numpy(x).cuda(), 16)
+    want_d, want_i = umap.exact_knn(x, 16)
+    d_err = float(np.max(np.abs(got_d - want_d) / np.maximum(want_d, 1e-6)))
+    # indices are held where a distance is clear of its neighbours' by twice the tolerance (ties may swap)
+    tol = 2 * UMAP_KNN_RTOL * want_d
+    clear = ((np.diff(want_d, axis=1, prepend=-np.inf) > tol) & (np.diff(want_d, axis=1, append=np.inf) > tol))[:, :15]
+    idx_equal = bool(np.array_equal(got_i[:, :15][clear], want_i[:, :15][clear]))
+    want_d, want_i = want_d[:, :15], want_i[:, :15]
+    graph = umap.fuzzy_graph_from_knn(want_d, want_i)
+    y0 = umap.spectral_init(graph, len(x), 2)
+    y0 = umap.pca_init(x, 2) if y0 is None else y0
+    out = {"knn_dist_rel_err": d_err, "knn_idx_equal_off_ties": idx_equal, "knn_clear_share": float(clear.mean())}
+    ab = umap.fit_ab(0.1, 1.0)
+    log_r = umap.log_radius_orig(graph)
+    rng = np.random.RandomState(3)
+    for densmap in (False, True):
+        t = {dev: {"head": torch.as_tensor(graph.head, dtype=torch.long, device=dev),
+                   "tail": torch.as_tensor(graph.tail, dtype=torch.long, device=dev),
+                   "weight": torch.as_tensor(graph.weight, device=dev),
+                   "log_r": torch.as_tensor(log_r, device=dev)} for dev in ("cpu", "cuda")}
+        for dev in t:
+            t[dev]["neg_head"] = t[dev]["head"].repeat(5)
+        negs = rng.randint(0, len(x), (UMAP_CHECK_EPOCHS, 5 * len(graph.head)))
+        y_card, errs = torch.as_tensor(y0).cuda(), []
+        for epoch in range(UMAP_CHECK_EPOCHS):
+            neg = torch.as_tensor(negs[epoch], dtype=torch.long)
+            g_card = layout_grad(torch, umap, y_card, t["cuda"], neg.cuda(), ab, densmap)
+            g_cpu = layout_grad(torch, umap, y_card.cpu(), t["cpu"], neg, ab, densmap)
+            errs.append(norm_rel_err(g_card.cpu(), g_cpu))
+            alpha = float(np.float32(1.0) - np.float32(epoch) / np.float32(UMAP_CHECK_EPOCHS))
+            y_card = y_card - alpha * torch.clamp(g_card, -4.0, 4.0)
+        # the whole 10-epoch runs, card and CPU, drift apart: the clipped steps amplify rounding (reported only)
+        kw = dict(n_epochs=UMAP_CHECK_EPOCHS, a=ab[0], b=ab[1], densmap=densmap, dens_lambda=2.0, seed=0, negatives=negs)
+        drift = float((umap.optimize_layout(y0, graph, log_r, device="cuda", **kw).cpu()
+                       - umap.optimize_layout(y0, graph, log_r, **kw)).abs().max())
+        key = "densmap" if densmap else "plain"
+        out[f"grad_rel_err_{key}"], out[f"drift_{key}"] = errs, drift
+        log(f"  card vs CPU at n = {len(x)}, {key}: the layout gradient along {UMAP_CHECK_EPOCHS} epochs with equal "
+            f"negatives, relative norm {max(errs):.3g} at worst (epoch 0: {errs[0]:.3g}; tolerance {UMAP_GRAD_TOL}); "
+            f"the two {UMAP_CHECK_EPOCHS}-epoch runs end {drift:.3g} apart at most (the layout spans +-{float(y_card.abs().max()):.3g})")
+        if max(errs) > UMAP_GRAD_TOL:
+            fail(f"UMAP layout gradient card vs CPU {errs}")
+    log(f"  kNN card vs CPU at n = {len(x)}: distances within {d_err:.3g} relative (tolerance {UMAP_KNN_RTOL}); "
+        f"indices equal off ties: {idx_equal} ({clear.mean():.1%} of neighbours clear of ties)")
+    if d_err > UMAP_KNN_RTOL or not idx_equal:
+        fail("UMAP kNN card vs CPU")
+    return out
+
+
+def phase_embedding(torch, fused_conv, flash_attention, rn50):
+    """Phase 11: ``save_domainnet_features`` over phase 7's tree and RN50
+    (fp32, K1/K2) and ``embedding_analysis`` on its output; then the script
+    at its own cap, 20,000 x 1024 seeded features, with the stages timed
+    by a replay that must give the script's embedding bit for bit."""
+    import numpy as np
+
+    from xclip_tpu_torch.evals import umap
+    from xclip_tpu_torch.scripts import embedding_analysis, save_domainnet_features
+
+    tree, ckpt = os.path.join(SCRATCH, "domainnet"), os.path.join(SCRATCH, "sae_rn50.pt")
+    root = os.path.join(SCRATCH, "embedding")
+    n_val = 6 * SAE_TEST_PER_DOMAIN
+    torch.cuda.synchronize()
+    zero_counts(fused_conv, flash_attention)
+    t0 = time.perf_counter()
+    rc = save_domainnet_features.main(["--model", "RN50", "--ckpt_files", ckpt, "--out_path", os.path.join(root, "f"),
+                                       "--domainnet_path", tree, "--num_workers", "0", "--device", "cuda"])
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    counts = sae_path_counts(fused_conv, flash_attention)
+    per_batch = fused_conv_shapes(rn50.vision, 1)
+    fb = math.ceil(n_val / SAE_FEATURES_BS)
+    want = {"K1": sum(not s[4] for s in per_batch) * fb, "K2": sum(s[4] for s in per_batch) * fb, "K3": 0, "K4": 0,
+            "K5": 0}
+    if rc != 0 or counts != want:
+        fail(f"save_domainnet_features rc {rc}, launches {counts} (expected {want})")
+    t0 = time.perf_counter()
+    rc = embedding_analysis.main(["--features_path", os.path.join(root, "f"), "--out_path", os.path.join(root, "e"),
+                                  "--device", "cuda"])
+    small_s = time.perf_counter() - t0
+    with open(os.path.join(root, "e", "embedding_analysis.json")) as fh:
+        summary = json.load(fh)
+    emb = np.load(os.path.join(root, "e", "embedding.npy"))
+    feats = np.load(os.path.join(root, "f", "img_feat.npy"))[-1]
+    ids = np.load(os.path.join(root, "f", "domain_ids.npy"))
+    if rc != 0 or summary != embedding_analysis.analysis_summary(feats, ids)[0] or emb.shape != (n_val, 2) \
+            or not np.isfinite(emb).all() or np.asarray(summary["domain_distance_matrix"]).shape != (6, 6):
+        fail(f"embedding_analysis on the RN50 features: rc {rc}, embedding {emb.shape}, keys {sorted(summary)}")
+    log(f"  save_domainnet_features (RN50 fp32, {n_val} images) {feat_s:.2f} s, launches {counts}; "
+        f"embedding_analysis {small_s:.2f} s; quickdraw max |diff| {summary['quickdraw_max_absdiff']:.4g}")
+
+    x, labels = umap_clusters(UMAP_N, UMAP_D)
+    big = os.path.join(root, "big")
+    os.makedirs(big)
+    np.save(os.path.join(big, "img_feat.npy"), x)
+    np.save(os.path.join(big, "domain_ids.npy"), labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = embedding_analysis.main(["--features_path", big, "--out_path", os.path.join(root, "big_out"),
+                                  "--max_points", str(UMAP_N), "--device", "cuda"])
+    torch.cuda.synchronize()
+    script_s = time.perf_counter() - t0
+    emb = np.load(os.path.join(root, "big_out", "embedding.npy"))
+    if rc != 0 or emb.shape != (UMAP_N, 2) or not np.isfinite(emb).all():
+        fail(f"embedding_analysis at {UMAP_N} x {UMAP_D}: rc {rc}, embedding {emb.shape}")
+
+    # the stages of umap_embed(densmap=True, seed=0), timed: kNN and layout on the card (CUDA events),
+    # the graph and the initialisation on the host
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    xt = torch.from_numpy(x).cuda()
+    torch.cuda.synchronize()
+    start.record()
+    d, i = umap.knn_device(xt, 15)
+    end.record()
+    end.synchronize()
+    knn_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    graph = umap.fuzzy_graph_from_knn(d.cpu().numpy(), i.cpu().numpy().astype(np.int32))
+    fuzzy_s = time.perf_counter() - t0
+    a, b = umap.fit_ab(0.1, 1.0)
+    t0 = time.perf_counter()
+    y0 = umap.spectral_init(graph, UMAP_N, 2)
+    spectral_s = time.perf_counter() - t0
+    init = "spectral" if y0 is not None else "pca (spectral failed)"
+    y0 = umap.pca_init(x, 2) if y0 is None else y0
+    y0 = y0 + np.random.RandomState(0).normal(0, 1e-4, y0.shape).astype(np.float32)
+    layouts, layout_ms = [], []
+    n_epochs = 500 if UMAP_N < 10000 else 200  # umap_embed's default
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start.record()
+        layouts.append(umap.optimize_layout(y0, graph, umap.log_radius_orig(graph), n_epochs=n_epochs, a=a, b=b,
+                                            densmap=True, dens_lambda=2.0, seed=0, device="cuda"))
+        end.record()
+        end.synchronize()
+        layout_ms.append(start.elapsed_time(end))
+    deterministic = torch.equal(layouts[0], layouts[1])
+    same_as_script = bool(np.array_equal(layouts[0].cpu().numpy(), emb))
+    log(f"  embedding_analysis {UMAP_N} x {UMAP_D}, densMAP, {n_epochs} epochs: wall {script_s:.2f} s; kNN {knn_ms:.1f} ms "
+        f"(CUDA events), fuzzy set {fuzzy_s:.2f} s and {init} init {spectral_s:.2f} s (host), layout "
+        f"{layout_ms[0]:.1f} / {layout_ms[1]:.1f} ms (CUDA events, {len(graph.head)} edges); two layouts bit for "
+        f"bit: {deterministic}; the replay equals the script's embedding: {same_as_script}")
+    if not deterministic or not same_as_script:
+        fail("the UMAP layout is not deterministic at a seed on the card")
+    cross = umap_card_vs_cpu(torch, umap, x)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, {"features_s": feat_s, "small_script_s": small_s, "summary_small": summary, "script_s": script_s,
+                    "knn_ms": knn_ms, "fuzzy_s": fuzzy_s, "spectral_s": spectral_s, "init": init,
+                    "layout_ms": layout_ms, "edges": len(graph.head), "deterministic": deterministic,
+                    "card_vs_cpu": cross}
+
+
 def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bwd_records, bwd_errs,
-              text_layers: int, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs, interp_counts_):
+              text_layers: int, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs, interp_counts_,
+              wds_counts, embedding_counts):
     """One entry per kernel. K1/K2 are timed over one 250-image eval batch
     (the sum over its launches of the per-shape times), K4 over one full
     text chunk (one launch per text block), K3 over one 128-image training
@@ -3035,7 +3639,9 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
     over one 256-image train-mode forward of the RN50 classifier. Phase 8's
     interpretability path (the two class circuits, their zero-shot heads and
     name_concepts' vocabulary) is ``interp`` in ``launches_by_path``, and the
-    circuits' MatmulAffineAct backward calls ``calls_in_interp``.
+    circuits' MatmulAffineAct backward calls ``calls_in_interp``. Phase 10's
+    two RN50 runs from tar shards are ``train_wds`` (their backward calls in
+    ``calls_in_train``), phase 11's feature cache ``embedding_features``.
     ``backward`` holds the Function's plain backward against autograd of the
     plain version at one shape per stage (bf16 and fp32 times summed over
     those shapes)."""
@@ -3083,12 +3689,13 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
                       for name, r in vit["towers"].items()},
                    "train_vit_b16": vit["train_counts"][kid],
                    **{name: c[kid] for name, c in sup_counts.items()},
-                   "interp": interp_counts_.get(kid, 0)}
+                   "interp": interp_counts_.get(kid, 0), "train_wds": wds_counts[kid],
+                   "embedding_features": embedding_counts[kid]}
         bwd = [r for r in bwd_records if r["kernel"] == kid]
         backward = {
             "route": "plain PyTorch in a torch.autograd.Function (no backward kernel yet)",
             "calls_in_train": (train_counts_[bwd_key] + ddp_counts[bwd_key] + vit["train_counts"][bwd_key]
-                               + sum(c[bwd_key] for c in sup_counts.values())),
+                               + sum(c[bwd_key] for c in sup_counts.values()) + wds_counts[bwd_key]),
             "calls_in_interp": interp_counts_.get(bwd_key, 0),
             "rel_err": bwd_errs[kid],
             "shapes": sorted({r["shape"] for r in bwd}),
@@ -3258,9 +3865,23 @@ def main() -> int:
         phase_s["interp"] = time.perf_counter() - t_start - sum(phase_s.values())
         log(f"  phase 8 took {phase_s['interp']:.1f} s")
 
+        log("[phase 9] data fabrication at DomainNet's size: captions, the 7 paper mixtures, the CC3M merge, "
+            "the ImageNet-Sketch mixes")
+        fabrication = phase_fabrication()
+        phase_s["fabrication"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[phase 10] RN50 training from tar shards: batch {TRAIN_BATCH} x accum {TRAIN_ACCUM}, amp, "
+            f"{WDS_STEPS} steps, plain and resampled with weights")
+        wds_counts, wds_train = phase_wds_train(torch, factory, train_main, fused_conv, flash_attention, rn50)
+        phase_s["wds_train"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[phase 11] embedding analysis: RN50 features, then densMAP at {UMAP_N} x {UMAP_D}")
+        embedding_counts, embedding = phase_embedding(torch, fused_conv, flash_attention, rn50)
+        phase_s["embedding"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"  phases 9-11 took {phase_s['fabrication']:.1f} / {phase_s['wds_train']:.1f} / "
+            f"{phase_s['embedding']:.1f} s")
+
         kernels = summarize(report, errs, counts, tcounts, stats_records, stats_errs, bwd_records, bwd_errs,
                             rn50.text.layers, sae_counts, k5, ddp_counts, vit, sup_counts, sup_records, sup_errs,
-                            interp_counts_)
+                            interp_counts_, wds_counts, embedding_counts)
         detail = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                   "cuda": torch.version.cuda, "build_s": build_s, "kernels": kernels, "report": report,
                   "matmul_stats": stats_records, "backward": bwd_records, "main_path": rates,
@@ -3268,7 +3889,8 @@ def main() -> int:
                   "ddp_launches": ddp_counts, "vit": vit,
                   "stream_scale": k5, "sae": sae, "sae_launches": sae_counts, "supervised": supervised,
                   "supervised_launches": sup_counts, "classifier_shapes": sup_records, "interp": interp,
-                  "interp_launches": interp_counts_,
+                  "interp_launches": interp_counts_, "fabrication": fabrication, "wds_train": wds_train,
+                  "wds_launches": wds_counts, "embedding": embedding, "embedding_launches": embedding_counts,
                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}
         with open(REPORT, "w") as fh:
             json.dump(detail, fh, indent=1)

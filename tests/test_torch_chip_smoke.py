@@ -294,3 +294,38 @@ def test_hsic1_cancellation_grows_with_a_common_offset():
     k_t = k - torch.diag(torch.diagonal(k))
     terms = [torch.trace(k_t @ k_t), k_t.sum() ** 2 / (11 * 10), 2.0 / 10 * (k_t @ k_t).sum()]
     assert float(sum(abs(t) for t in terms) / (12 * 9 * cka.hsic1(k, k))) == pytest.approx(base, rel=1e-12)
+
+
+def test_fabrication_phase_builds_the_paper_mixtures():
+    """Phase 9 builds the seven paper mixtures under their identifiers, at
+    DomainNet's published 586,575 rows."""
+    from xclip_tpu_torch.data import lso, mixtures
+
+    assert [m for m, _ in chip_smoke.FAB_MIXTURES] == mixtures.PAPER_MIXTURES
+    for ident, kw in chip_smoke.FAB_MIXTURES:
+        exclude_domains = kw.get("exclude_domains", [])
+        if kw.get("single_domain"):
+            exclude_domains = [d for d in lso.ALL_DOMAINS if d not in (kw["exclude"], "real")]
+        if kw.get("real_only"):
+            exclude_domains = [d for d in lso.ALL_DOMAINS if d != "real"]
+        assert lso.build_identifier(real_only=kw.get("real_only", False), domains=lso.ALL_DOMAINS,
+                                    exclude_domains=exclude_domains, exclude=kw.get("exclude"),
+                                    subsample=kw.get("subsample", False), pseudo_exclude=False, allow_pct=0.0,
+                                    aligned_captions=False) == ident
+    assert sum(sum(v) for v in chip_smoke.FAB_DN_COUNTS.values()) == 586575
+
+
+def test_wds_training_counts_of_rn50():
+    """Phase 10's exact counts a run: 4 steps x accum 2, as the TSV path."""
+    cfg = factory.get_clip_cfg("RN50")
+    assert chip_smoke.train_path_counts(cfg, chip_smoke.WDS_STEPS, chip_smoke.TRAIN_ACCUM) == {
+        "K1": 96, "K2": 384, "K3": 384, "K4": 288, "K1/K2 backward": 160, "K3 backward": 128, "K4 backward": 96}
+
+
+def test_read_train_log(tmp_path):
+    log = tmp_path / "out.log"
+    log.write_text("2026 | INFO | Start epoch 0\n"
+                   "2026 | INFO | Train Epoch: 0 [ 256/1024 (25%)] Loss: 5.5452 (5.545) Data (t): 0.012 "
+                   "Batch (t): 0.431, 593.968/s, 593.968/s/gpu Scale: 14.286\n")
+    lines, losses, rates = chip_smoke.read_train_log(str(log))
+    assert len(lines) == 1 and losses == [5.5452] and rates == [593.968]

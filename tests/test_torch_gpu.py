@@ -798,3 +798,50 @@ def test_ig_node_effect_card_matches_cpu(cuda, monkeypatch):
     assert fused_conv.launches > launches  # the card's forwards went through K1/K2
     ref = effects[0]
     assert float((effects[1] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def _umap_graph(n=600, d=64, seed=0):
+    from xclip_tpu_torch.evals import umap
+
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(6, d) * 3
+    labels = np.arange(n) % 6
+    x = (centers[labels] + (0.5 + labels[:, None] / 3) * rng.randn(n, d)).astype(np.float32)
+    graph = umap.fuzzy_simplicial_set(x, 15)
+    return x, graph, umap.pca_init(x, 2), umap.log_radius_orig(graph)
+
+
+@pytest.mark.gpu
+def test_umap_knn_card_matches_cpu(cuda):
+    """Exact kNN on the card against the CPU: distances within 1e-5
+    relative, indices equal where the next distance is clear of fp32
+    rounding (ties may order differently)."""
+    from xclip_tpu_torch.evals import umap
+
+    x, *_ = _umap_graph()
+    got_d, got_i = umap.exact_knn(torch.from_numpy(x).to(cuda), 16)
+    want_d, want_i = umap.exact_knn(x, 16)
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
+    tol = 2e-5 * want_d
+    clear = ((np.diff(want_d, axis=1, prepend=-np.inf) > tol) & (np.diff(want_d, axis=1, append=np.inf) > tol))[:, :15]
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got_i[:, :15][clear], want_i[:, :15][clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("densmap", [False, True], ids=["plain", "densmap"])
+def test_umap_layout_card_matches_cpu_and_is_deterministic(cuda, densmap):
+    """One layout epoch with equal negatives, card vs CPU within 1e-4 (the
+    clipped steps amplify rounding about tenfold an epoch, so later epochs
+    are held step by step, in chip_smoke), and 30 epochs with the card's
+    own negatives bit for bit equal between two runs."""
+    from xclip_tpu_torch.evals import umap
+
+    x, graph, y0, log_r = _umap_graph()
+    kw = dict(a=1.577, b=0.895, densmap=densmap, dens_lambda=2.0, seed=5)
+    negs = np.random.RandomState(1).randint(0, len(x), (1, 5 * len(graph.head)))
+    got = umap.optimize_layout(y0, graph, log_r, n_epochs=1, device=cuda, negatives=negs, **kw)
+    want = umap.optimize_layout(y0, graph, log_r, n_epochs=1, negatives=negs, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+    runs = [umap.optimize_layout(y0, graph, log_r, n_epochs=30, device=cuda, **kw) for _ in range(2)]
+    assert runs[0].is_cuda and torch.equal(runs[0], runs[1])

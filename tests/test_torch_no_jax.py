@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``xclip_tpu_torch``
 pulls in neither jax nor any module of the JAX package ``xclip_tpu``, nor
-scikit-learn, networkx or graphviz (the machine with the card has none of
-them), and no source file of the port (or ``chip_smoke.py``) imports them."""
+scikit-learn, networkx, graphviz, webdataset or umap-learn (the machine
+with the card has none of them), and no source file of the port (or
+``chip_smoke.py``) imports them, or matplotlib outside a function."""
 
 import pathlib
 import re
@@ -35,25 +36,31 @@ def test_importing_every_module_loads_no_jax():
     assert "BAD []" in res.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|xclip_tpu|sklearn|networkx|graphviz)\b(?!_torch)"
-                        r"|from\s+(jax|jaxlib|xclip_tpu|sklearn|networkx|graphviz)\b(?!_torch))", re.MULTILINE)
+_BANNED = "jax|jaxlib|xclip_tpu|sklearn|networkx|graphviz|webdataset|umap"
+_FORBIDDEN = re.compile(rf"^\s*(import\s+({_BANNED})\b(?!_torch)|from\s+({_BANNED})\b(?!_torch))", re.MULTILINE)
+_TOP_LEVEL_MATPLOTLIB = re.compile(r"^(import|from)\s+matplotlib\b", re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py"))
                          + ["chip_smoke.py"])
 def test_source_has_no_jax_import(path):
     text = (ROOT / path).read_text()
-    assert not _FORBIDDEN.search(text), f"{path} imports jax, the JAX package, scikit-learn, networkx or graphviz"
+    assert not _FORBIDDEN.search(text), (f"{path} imports jax, the JAX package, scikit-learn, networkx, graphviz, "
+                                         "webdataset or umap")
+    assert not _TOP_LEVEL_MATPLOTLIB.search(text), f"{path} imports matplotlib at module level"
 
 
 def test_forbidden_pattern_catches_imports():
     for bad in ("import jax", "import jax.numpy as jnp", "from xclip_tpu.ops import x",
                 "import xclip_tpu", "  from jax import numpy", "import sklearn",
-                "    from sklearn.metrics import f1_score", "import networkx as nx", "from graphviz import Digraph"):
+                "    from sklearn.metrics import f1_score", "import networkx as nx", "from graphviz import Digraph",
+                "import webdataset as wds", "    import umap", "from umap import UMAP"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import xclip_tpu_torch", "from xclip_tpu_torch.ops import fused_conv",
-               "# the JAX package xclip_tpu"):
+               "# the JAX package xclip_tpu", "from xclip_tpu_torch.evals.umap import umap_embed"):
         assert not _FORBIDDEN.search(ok), ok
+    assert _TOP_LEVEL_MATPLOTLIB.search("import matplotlib\n") and not _TOP_LEVEL_MATPLOTLIB.search(
+        "    import matplotlib\n")
 
 
 def test_modules_import_and_run_with_jax_blocked():
@@ -61,9 +68,11 @@ def test_modules_import_and_run_with_jax_blocked():
     scikit-learn, every module of the port imports, and the slice's CPU
     paths run: the bandwidth probe, an SAE train step, resample and
     checkpoint, a ViT tower in train mode with patch dropout, a supervised
-    classifier step with its native checkpoint, the macro F1, and a tiny
+    classifier step with its native checkpoint, the macro F1, a tiny
     RN's class circuit with its graph, WL similarity and DOT source, CKA
-    and concept names (networkx and graphviz refused too)."""
+    and concept names (networkx and graphviz refused too), DomainNet
+    captions and an LSO mixture, a tar shard read, and the embedding
+    analysis (webdataset, umap-learn and matplotlib refused: no figures)."""
     code = (
         "import importlib, importlib.abc, sys\n"
         "import importlib.machinery\n"
@@ -77,7 +86,7 @@ def test_modules_import_and_run_with_jax_blocked():
         "        root = name.split('.')[0]\n"
         "        if root in ('jax', 'jaxlib', 'xclip_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
-        "        if root in ('sklearn', 'networkx', 'graphviz'):  # found (torch may probe), refused on import\n"
+        "        if root in ('sklearn', 'networkx', 'graphviz', 'webdataset', 'umap', 'matplotlib'):  # refused on import\n"
         "            return importlib.machinery.ModuleSpec(name, Refuse())\n"
         "        return None\n"
         "sys.meta_path.insert(0, Block())\n"
@@ -127,7 +136,39 @@ def test_modules_import_and_run_with_jax_blocked():
         "x = np.random.RandomState(0).randn(8, 3)\n"
         "assert abs(cka.linear_cka(x, x) - 1.0) < 1e-12\n"
         "assert naming.decode_sae_config('ef4_lr1e-3') == {'expansion_factor': 4, 'lr': 1e-3}\n"
-        "for banned in ('sklearn', 'networkx', 'graphviz'):\n"
+        "import io, os, tarfile, contextlib\n"
+        "from PIL import Image\n"
+        "from xclip_tpu_torch.data import captions, lso, wds\n"
+        "from xclip_tpu_torch.evals.lso import LSO_CLASS_TO_IDX\n"
+        "names = [f'c{i}' for i in range(345)]\n"
+        "for cls, idx in LSO_CLASS_TO_IDX.items():\n"
+        "    names[idx] = cls.replace(' ', '_')\n"
+        "dn = d + '/domainnet'\n"
+        "os.makedirs(dn)\n"
+        "for dom in ('clipart', 'infograph', 'painting', 'quickdraw', 'real', 'sketch'):\n"
+        "    for split in ('train', 'test'):\n"
+        "        open(f'{dn}/{dom}_{split}.txt', 'w').write(''.join(f'{dom}/{c}/i.jpg {i}\\n' for i, c in enumerate(names)))\n"
+        "captions.generate_domainnet_captions(dn)\n"
+        "for split in ('train', 'val'):\n"
+        "    open(f'{d}/in-captions-{split}.tsv', 'w').write('filepath\\ttitle\\n/x/a.jpg\\tcap\\n')\n"
+        "assert lso.subsample_domainnet_lso(dn, d, exclude='sketch', subsample=True) == 'lso-cipqrs-nosketchclasses'\n"
+        "with tarfile.open(d + '/s.tar', 'w') as tf:\n"
+        "    buf = io.BytesIO()\n"
+        "    Image.new('RGB', (8, 8)).save(buf, format='JPEG')\n"
+        "    for name, data in (('a.jpg', buf.getvalue()), ('a.txt', b'cap')):\n"
+        "        info = tarfile.TarInfo(name)\n"
+        "        info.size = len(data)\n"
+        "        tf.addfile(info, io.BytesIO(data))\n"
+        "assert [s['text'] for s in wds.WebDatasetReader(d + '/s.tar')] == ['cap']\n"
+        "from xclip_tpu_torch.scripts import embedding_analysis\n"
+        "os.makedirs(d + '/f')\n"
+        "np.save(d + '/f/img_feat.npy', np.random.RandomState(0).randn(40, 8).astype(np.float32))\n"
+        "np.save(d + '/f/domain_ids.npy', np.arange(40) % 6)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    embedding_analysis.main(['--features_path', d + '/f', '--out_path', d + '/e', '--device', 'cpu'])\n"
+        "assert 'figures: none' in out.getvalue() and np.load(d + '/e/embedding.npy').shape == (40, 2)\n"
+        "for banned in ('sklearn', 'networkx', 'graphviz', 'webdataset', 'umap', 'matplotlib'):\n"
         "    try:\n"
         "        __import__(banned)\n"
         "        raise AssertionError(banned + ' imported')\n"

@@ -498,7 +498,7 @@ def tiny_rn_ckpt(tmp_path_factory):
     return path, jax_model_, params, state
 
 
-@pytest.mark.parametrize("mode", ["none", "label"])
+@pytest.mark.parametrize("mode", ["none", "label", "caption", "label+caption"])
 def test_domainnet_modes_match_jax(dn_tree, mode):
     port = port_datasets.DomainNetCaptions(str(dn_tree), "train", image_transform(32), mode=mode)
     want = jax_datasets.DomainNetCaptions(str(dn_tree), "train", jax_image_transform(32, False), mode=mode)
@@ -511,9 +511,14 @@ def test_domainnet_modes_match_jax(dn_tree, mode):
         assert got[1:] == tuple(w[1:])
     default = port_datasets.DomainNetCaptions(str(dn_tree), "val", image_transform(32))
     assert isinstance(default[0], tuple) and default[0][1] == default.samples[0][1]
-    for unsupported in ("labels", "caption", "label+caption"):  # the caption modes have no caller yet
-        with pytest.raises(ValueError, match="mode"):
-            port_datasets.DomainNetCaptions(str(dn_tree), "train", image_transform(32), mode=unsupported)
+    with pytest.raises(ValueError, match="mode"):
+        port_datasets.DomainNetCaptions(str(dn_tree), "train", image_transform(32), mode="labels")
+    drop = {"real": {0, 1}}  # labels dropped from real: JAX's class filter and per-domain counts
+    port = port_datasets.DomainNetCaptions(str(dn_tree), "val", image_transform(32), exclude_domains=["sketch"],
+                                           filter_classes=drop)
+    want = jax_datasets.DomainNetCaptions(str(dn_tree), "val", jax_image_transform(32, False),
+                                          exclude_domains=["sketch"], filter_classes=drop)
+    assert port.samples == want.samples and port.samples_per_domain == want.samples_per_domain
 
 
 @pytest.mark.parametrize("return_caption", [True, False])

@@ -5,10 +5,12 @@ Copies from ``xclip_tpu/data/datasets.py``:
 
 - ``ImageFolderIndex``, ``ImageNet``, ``ImageNetV2``, ``DomainNetCaptions``
   and ``DOMAIN_TO_IDX`` (:26-125, :222-268), without ImageNet's class
-  remapping or DomainNet's filtering; ``DomainNetCaptions(mode=...)``
-  returns the image with its label, or alone (``mode="none"``, the SAE
-  feature cache); batched by ``torch.utils.data.DataLoader``
-  (``evals/features.py``) or ``data/loader.py`` (``sae/cache.py``);
+  remapping; ``DomainNetCaptions`` with JAX's domain exclusion, class
+  filter, ``samples_per_domain``, ``to_tsv`` (the LSO mixtures,
+  ``data/lso.py``) and modes (the image with its label and/or caption, or
+  alone: ``mode="none"``, the SAE feature cache); batched by
+  ``torch.utils.data.DataLoader`` (``evals/features.py``) or
+  ``data/loader.py`` (``sae/cache.py``);
 - ``TsvDataset`` (``filepath\\ttitle``) and ``SyntheticDataset`` (:270-375),
   (image, caption) samples for training, or the image alone
   (``return_caption=False``), batched by ``data/loader.py``;
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 from PIL import Image
@@ -119,39 +121,54 @@ class ImageNetV2(ImageFolderIndex):
 
 
 class DomainNetCaptions:
-    """Per-domain DomainNet TSV index with domain exclusion. TSV rows:
-    path\tlabel\tcaption; ``samples`` holds (path, label, caption). An item
+    """Per-domain DomainNet TSV index with domain exclusion and class
+    filtering. TSV rows: path\tlabel\tcaption; ``samples`` holds (path,
+    label, caption), ``samples_per_domain`` the rows kept in each domain.
+    ``filter_classes`` maps a domain to the labels dropped from it. An item
     is (image, label) with ``mode="label"`` (the default), the image alone
-    with ``mode="none"``."""
+    with ``mode="none"``, (image, caption) with ``mode="caption"`` and
+    (image, label, caption) with ``mode="label+caption"``. ``to_tsv``
+    writes the ``filepath\ttitle`` training TSV of the samples."""
 
     def __init__(self, domainnet_path: str, split: str, transform: Callable,
-                 exclude_domains: Sequence[str] = (), mode: str = "label"):
+                 exclude_domains: Sequence[str] = (), filter_classes: Optional[Dict[str, Set[int]]] = None,
+                 mode: str = "label"):
         domainnet_path = os.path.abspath(domainnet_path)
         if split not in ("train", "val"):
             raise ValueError(f"split must be 'train' or 'val', got {split!r}")
-        if mode not in ("none", "label"):
-            raise ValueError(f"mode must be 'none' or 'label', got {mode!r}")
-        self.return_label = mode == "label"
+        if mode not in ("none", "label", "caption", "label+caption"):
+            raise ValueError(f"mode must be 'none', 'label', 'caption' or 'label+caption', got {mode!r}")
+        filter_classes = filter_classes or {}
+        self.return_label = "label" in mode
+        self.return_caption = "caption" in mode
         split = "test" if split == "val" else split
+        self.samples_per_domain = {d: 0 for d in ALL_DOMAINS}
         self.samples: List[Tuple[str, int, str]] = []
         for domain in ALL_DOMAINS:
             if domain in exclude_domains:
                 continue
             with open(os.path.join(domainnet_path, f"{domain}_{split}.tsv")) as fh:
                 rows = [line.split("\t") for line in fh.readlines()]
-            self.samples.extend(
-                (os.path.join(domainnet_path, p), int(label), caption.strip())
-                for p, label, caption in rows
-            )
+            samples = [(os.path.join(domainnet_path, p), int(label), caption.strip()) for p, label, caption in rows]
+            if domain in filter_classes:
+                samples = [s for s in samples if s[1] not in filter_classes[domain]]
+            self.samples_per_domain[domain] = len(samples)
+            self.samples.extend(samples)
         self.transform = transform
+
+    def to_tsv(self, path: str) -> None:
+        with open(path, "w") as fh:
+            fh.write("filepath\ttitle\n")
+            fh.writelines(f"{p}\t{caption}\n" for p, _, caption in self.samples)
 
     def __len__(self) -> int:
         return len(self.samples)
 
     def __getitem__(self, index: int):
-        path, label, _ = self.samples[index]
+        path, label, caption = self.samples[index]
         img = self.transform(Image.open(path))
-        return (img, label) if self.return_label else img
+        sample = (img,) + ((label,) if self.return_label else ()) + ((caption,) if self.return_caption else ())
+        return sample if len(sample) > 1 else img
 
 
 class TsvDataset:

@@ -17,7 +17,13 @@ train.py:train_one_epoch):
 - a TSV/CSV or synthetic dataset behind the threaded loader, sharded over
   the ranks, ``batch_size * accum_freq`` rows per rank and step, every
   rank the same number of steps; batches are pinned in the loader's thread
-  and copied to the card with ``non_blocking=True``;
+  and copied to the card with ``non_blocking=True``; or tar shards
+  (``--dataset-type webdataset``, or a ``.tar`` name) streamed by
+  ``data.wds.WdsLoader`` at the same per-rank batch, the shards split by
+  rank (or resampled, ``--dataset-resampled``, with
+  ``--train-data-upsampling-factors`` per ``::`` source), the captions from
+  ``.txt`` or, with ``--json-captions``, the ``.json`` sidecars, and
+  ``--train-num-samples // world_size`` samples a rank and epoch;
 - cosine/const schedules, AdamW, the train step with the local-loss row
   block, the differentiable gather and the gradients and BatchNorm
   statistics averaged over the ranks (``train.step``);
@@ -46,9 +52,9 @@ Rank 0 alone writes: the log file (after the "Experiment already exists"
 check, whose outcome every rank follows), the checkpoints and
 ``results.jsonl``, as the reference's ``is_master`` does. Losses are
 fetched from the device only at log boundaries. fp32 products and
-convolutions run in full fp32 (no TF32). Not ported: webdataset,
-``--lock-*``, distillation, and the JAX trainer's ``--batch-prefetch``
-device-copy thread.
+convolutions run in full fp32 (no TF32). Not ported: ``--lock-*``,
+distillation, and the JAX trainer's ``--batch-prefetch`` device-copy
+thread.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from xclip_tpu_torch.core.precision import disable_tf32
 from xclip_tpu_torch.data.datasets import ImageNet, ImageNetV2, SyntheticDataset, TsvDataset
 from xclip_tpu_torch.data.loader import DataLoader, tokenizing_collate
 from xclip_tpu_torch.data.transforms import image_transform
+from xclip_tpu_torch.data.wds import WdsLoader, WebDatasetReader
 from xclip_tpu_torch.models.factory import create_model
 from xclip_tpu_torch.parallel.distributed import (DistInfo, broadcast_model, broadcast_object,
                                                   init_distributed_from_env)
@@ -120,11 +127,24 @@ def get_data(args, preprocess_train, preprocess_val, tokenizer, pin_memory: bool
     dataset_type = args.dataset_type
     if dataset_type == "auto" and args.train_data:
         ext = args.train_data.split(".")[-1]
-        dataset_type = "csv" if ext in ("csv", "tsv") else "synthetic"
+        dataset_type = {"tar": "webdataset", "csv": "csv", "tsv": "csv"}.get(ext, "synthetic")
+    if dataset_type in ("csv", "tsv", "webdataset") and not args.train_data:
+        raise ValueError(f"--dataset-type {dataset_type} needs --train-data")
     train_ds = None
-    if dataset_type in ("csv", "tsv"):
-        if not args.train_data:
-            raise ValueError(f"--dataset-type {dataset_type} needs --train-data")
+    if dataset_type == "webdataset":
+        weights = None
+        if args.train_data_upsampling_factors:
+            if not args.dataset_resampled:
+                raise ValueError("--train-data-upsampling-factors is only supported when sampling with "
+                                 "replacement (with --dataset-resampled)")
+            weights = [float(w) for w in args.train_data_upsampling_factors.split("::")]
+        reader = WebDatasetReader(
+            args.train_data, transform=preprocess_train, resampled=args.dataset_resampled, weights=weights,
+            json_caption_key="caption" if args.json_captions else None, shuffle=True, seed=args.seed,
+            rank=info.rank, world_size=info.world_size, num_workers=args.workers)
+        data["train"] = WdsLoader(reader, args.batch_size * args.accum_freq, tokenizer=tokenizer,
+                                  num_samples=(args.train_num_samples or 0) // info.world_size)
+    elif dataset_type in ("csv", "tsv"):
         train_ds = TsvDataset(args.train_data, img_transform=preprocess_train)
     elif dataset_type == "synthetic":
         train_ds = SyntheticDataset(preprocess_train, image_size=preprocess_train.size,
@@ -153,11 +173,12 @@ def _to_device(batch, device: torch.device):
     return [torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in ("images", "texts")]
 
 
-def train_one_epoch(step_fn, loader: DataLoader, epoch: int, args, device: torch.device, info: DistInfo,
+def train_one_epoch(step_fn, loader, epoch: int, args, device: torch.device, info: DistInfo,
                     tb_writer, wandb_run) -> None:
     loader.set_epoch(epoch)
     num_batches_per_epoch = loader.num_batches
-    samples_per_epoch = len(loader.dataset)
+    # the log line's denominator: the dataset's rows, or the shards' epoch size over all ranks
+    samples_per_epoch = loader.num_samples * info.world_size if isinstance(loader, WdsLoader) else len(loader.dataset)
     sample_digits = math.ceil(math.log10(samples_per_epoch + 1))
     losses_m, batch_time_m, data_time_m = AverageMeter(), AverageMeter(), AverageMeter()
     pending = []  # device (loss, logit_scale) of the steps since the last log line

@@ -12,7 +12,10 @@ default, raising without a card) or ``cpu``. ``--report-to`` takes
 ``tensorboard``, ``wandb`` or ``all`` (substrings, as JAX reads it):
 rank 0 writes the train scalars to ``<logs>/<name>/tensorboard`` and, for
 wandb, the train and val metrics to wandb or, without the package, to
-``<logs>/<name>/wandb-offline``.
+``<logs>/<name>/wandb-offline``. Tar shards (``--dataset-type webdataset``,
+or ``auto`` on a ``.tar`` name) take ``--dataset-resampled``,
+``--json-captions`` and ``--train-data-upsampling-factors`` with JAX's
+defaults, and need ``--train-num-samples``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,18 @@ def parse_args(args=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser("xclip_tpu_torch CLIP training")
     # data
     parser.add_argument("--train-data", type=str, default=None,
-                        help="TSV/CSV with a 'filepath\\ttitle' header")
+                        help="TSV/CSV with a 'filepath\\ttitle' header, or tar shards ('shards-{000..009}.tar', "
+                             "'::' between sources)")
     parser.add_argument("--val-data", type=str, default=None,
                         help="TSV/CSV of (image, caption) pairs for the val loss and retrieval metrics")
-    parser.add_argument("--dataset-type", choices=["csv", "tsv", "synthetic", "auto"], default="auto")
+    parser.add_argument("--dataset-type", choices=["csv", "tsv", "webdataset", "synthetic", "auto"], default="auto")
+    parser.add_argument("--dataset-resampled", default=False, action="store_true",
+                        help="webdataset: draw shards with replacement")
+    parser.add_argument("--json-captions", default=False, action="store_true",
+                        help="load webdataset captions from json files (key 'caption') instead of txt")
+    parser.add_argument("--train-data-upsampling-factors", type=str, default=None,
+                        help="'::'-separated per-source sampling weights for resampled webdataset "
+                             "(e.g. 1::2::0.5); requires --dataset-resampled")
     parser.add_argument("--imagenet-val", type=str, default=None,
                         help="ImageNet root (or its val/ folder) for the zero-shot eval")
     parser.add_argument("--imagenet-v2", type=str, default=None,
