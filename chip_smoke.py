@@ -29,6 +29,9 @@ Phases, each fatal on failure:
    (ViT-e-14), ViT-B-16's training microbatch of 128 at L = 197 and at the
    99 tokens patch dropout 0.5 leaves, 64 images of ViT-L-14-336 at
    L = 577, and the ViT-B-32 classifier's training batch of 256 at L = 50;
+   3e. K4 at head dim 72 (ViT-SO400M-14-SigLIP: its image eval batch of
+   250 at 256 tokens and a 2048-prompt chunk of its 16-token text tower),
+   as 3c, and held causal against the plain version as well;
    3d. K3, K1 and K2 in bf16 at the RN50 classifier's training shapes
    (batch 256, no accumulation: M up to 802,816 rows), against the plain
    versions, timed with the plain version, the library call and the bound;
@@ -51,7 +54,25 @@ Phases, each fatal on failure:
    4c. seeded image towers of ViT-H-14 (32 layers, width 1280, head dim
    80), ViT-g-14 (40, 1408, 88) and ViT-e-14 (56, 1792, 112) encode 64
    images each through K4 in bf16 and fp32, against the same tower with
-   the plain attention; one launch per layer;
+   the plain attention, one launch per layer: unit-norm features within
+   1e-4 in fp32 in relative norm; in bf16 within 1e-2 or 1.25 times the
+   distance of a witness (the plain route with P rounded to bf16 before
+   P V: the tower's own bf16 noise), whichever is larger, and each
+   block's update on its real input within 1e-2;
+   4d. the same evaluation as 4b for a seeded EVA02-L-14 (24 image layers
+   with RoPE, SwiGLU MLPs, head dim 64; ``custom_text``: the text tower's
+   keys under ``text.``) and a seeded convnext_large_d (256 px, ``mlp``
+   head, LayerScale gammas seeded by ``randomize_layer_scale``; K4 only in
+   its 16-layer text tower), exact K4 counts by head dim, timed and
+   profiled, 4 images and 4 prompts card vs CPU in fp32 within 1e-4;
+   4e. seeded towers at full width, 64 images, bf16 and fp32: EVA02-E-14's
+   image tower (64 post-norm layers at width 1792, head dim 112, 4.35 B
+   parameters) and ViT-SO400M-14-SigLIP's image tower (MAP pool) and text
+   tower (256 seeded token ids, 16 tokens, not causal), both at head dim
+   72, through K4 against the same towers with the plain attention, one
+   launch per layer, held as in 4c; and convnext_xxlarge's image tower (no
+   attention: its bf16 batch timed) held in fp32 against the port on the
+   CPU on 2 images within 1e-4;
 5. drive the training path at full width: a seeded TSV of 1,024 random
    256-px JPEGs, ``xclip_tpu_torch.train.main.main`` for RN50 at batch 128,
    accum-freq 2, ``--precision amp``, ``--grad-checkpointing``, 2 epochs,
@@ -279,12 +300,36 @@ VIT_CHECK = 4  # phase 4b: images and prompts held card vs CPU in fp32
 # phase 4b: fp32 card vs CPU on unit-norm features; the two differ by
 # summation order only (ViT-L-14 measured 1.7e-7)
 VIT_CHECK_TOL = 1e-4
-# phase 4c: the bf16 tower through K4 against the same tower with the plain
-# attention, ||got - ref|| / ||ref|| of the unit-norm features: each layer's
-# attention rounds its output to bf16 once in both routes, but the kernel
-# also rounds P to bf16 before P V (as the JAX einsum path does), a few
-# bf16 ulps that the residual stream carries through 32 to 56 layers
-VIT_TOWER_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+# phases 4c and 4e: a tower through K4 against the same tower with the
+# plain attention, ||got - ref|| / ||ref|| of the unit-norm features. In
+# fp32 the routes differ by summation order. In bf16 any difference between
+# two routes, even a few roundings flipped in one layer, grows through a
+# deep random tower to the tower's own bf16 noise: the plain route with P
+# rounded to bf16 (the witness, no kernel; ``attention_routes``) lands as
+# far from the plain route as K4 does (EVA02-E-14 4.05e-2 and 4.06e-2,
+# ViT-e-14 1.46e-2 both), and a K4 whose every output was the plain fp32
+# result rounded once moved ViT-H-14 only from 1.02e-2 to 0.999e-2 (H100).
+# So bf16 holds the features within 1e-2 or TOWER_NOISE_RATIO times the
+# witness's distance, whichever is larger, and each block's update within
+# BLOCK_UPDATE_TOL
+VIT_TOWER_TOL = {"fp32": 1e-4, "bf16": 1e-2}
+TOWER_NOISE_RATIO = 1.25
+# phases 4c and 4e, bf16: each block's residual update (output - input)
+# through K4 against the plain route's on the same input, ||got - ref|| /
+# ||ref - input||: one block's rounding without the tower's amplification
+# (7.1e-3 at most, EVA02-E-14 on an H100)
+BLOCK_UPDATE_TOL = 1e-2
+# phases 3e, 4d, 4e: the timm-tower families. 4d scores EVA02-L-14 (RoPE,
+# head dim 64) and convnext_large_d (256 px, mlp head; no attention in the
+# image tower) through run_lso; 4e runs EVA02-E-14's image tower (head dim
+# 112, 64 layers, post-norm), both towers of ViT-SO400M-14-SigLIP (head dim
+# 72: the image tower at 256 tokens, the text tower at 16, not causal) and
+# convnext_xxlarge's image tower
+TIMM_LSO_MODELS = ("EVA02-L-14", "convnext_large_d")
+SIGLIP = "ViT-SO400M-14-SigLIP"
+TIMM_TOWERS = ("EVA02-E-14", SIGLIP, "convnext_xxlarge")
+TIMM_TEXT_BATCH = 256   # phase 4e: seeded token ids through the SigLIP text tower
+CONVNEXT_CPU_CHECK = 2  # phase 4e: convnext_xxlarge images held card vs CPU in fp32 (the CPU side is slow)
 # phase 5f: the supervised baseline (launchers/train-supervised.sh: global
 # batch 256, 16-mixed = bf16), 1345-way RN50 and ViT-B-32 classifiers
 SUP_BATCH = 256
@@ -558,15 +603,26 @@ def vit_attention_shapes(factory) -> list:
     return shapes
 
 
-def phase_vit_attention(torch, flash_attention, factory, dtypes):
-    """K4 non-causal at the ViT paths' shapes, in fp32, bf16 and fp16:
-    against its plain version, timed with the plain version,
-    ``F.scaled_dot_product_attention(is_causal=False)`` and its bound."""
+def timm_attention_shapes(factory) -> list:
+    """(role, B, H, L, D) of K4 at head dim 72: ViT-SO400M-14-SigLIP's
+    image eval batch of 250 at 256 tokens (no class token) and its text
+    tower over a 2048-prompt chunk at 16 tokens, both non-causal."""
+    cfg = factory.get_clip_cfg(SIGLIP)
+    v, t = cfg.vision, cfg.text
+    return [(f"{SIGLIP} eval batch (head dim 72)", BATCH, v.heads, v.seq_len, v.width // v.heads),
+            (f"{SIGLIP} text chunk (head dim 72)", TEXT_CHUNK, t.heads, t.context_length, t.width // t.heads)]
+
+
+def phase_vit_attention(torch, flash_attention, factory, dtypes, shapes=None, causal_check=False):
+    """K4 non-causal at the ViT paths' shapes (or ``shapes``), in fp32, bf16
+    and fp16: against its plain version, timed with the plain version,
+    ``F.scaled_dot_product_attention(is_causal=False)`` and its bound; with
+    ``causal_check`` also held causal against the plain version."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     records, errs = [], {}
-    for role, bsz, heads, seq, hd in vit_attention_shapes(factory):
+    for role, bsz, heads, seq, hd in shapes or vit_attention_shapes(factory):
         for dname, dt in dtypes.items():
             esize = torch.finfo(dt).bits // 8
             q, k, v = (torch.randn(bsz, heads, seq, hd, device="cuda", generator=gen).to(dt) for _ in range(3))
@@ -578,6 +634,12 @@ def phase_vit_attention(torch, flash_attention, factory, dtypes):
             if not ok:
                 fail(f"flash_attention {dname} non-causal B={bsz} H={heads} L={seq} D={hd}: max_abs_err {err}")
             del got, ref
+            if causal_check:
+                c_err = close(flash_attention.flash_attention(q, k, v, causal=True),
+                              flash_attention.flash_attention_plain(q, k, v, causal=True), TOLERANCE[dname])
+                errs[dname] = max(errs[dname], c_err[1])
+                if not c_err[0]:
+                    fail(f"flash_attention {dname} causal B={bsz} H={heads} L={seq} D={hd}: max_abs_err {c_err[1]}")
             rec = {"kernel": "K4", "role": role, "dtype": dname, "B": bsz, "H": heads, "L": seq, "D": hd,
                    "causal": False, "max_abs_err": err,
                    "kernel_ms": time_ms(lambda: flash_attention.flash_attention(q, k, v)),
@@ -589,7 +651,8 @@ def phase_vit_attention(torch, flash_attention, factory, dtypes):
             log(f"  K4 {dname} B={bsz} H={heads} L={seq} D={hd} non-causal ({role}): "
                 f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                 f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
-                f"share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g}")
+                f"share_of_bound={rec['share_of_bound']:.3f} max_abs_err={err:.3g}"
+                + (f", causal {c_err[1]:.3g}" if causal_check else ""))
             del q, k, v
             torch.cuda.empty_cache()
     return records, errs
@@ -935,34 +998,64 @@ def phase_card_vs_cpu(torch, factory, tokenizer_mod, model_gpu):
 
 
 def vit_lso_counts(cfg):
-    """Phase 4b's exact launches: K4 once per image layer and image batch
-    (phase 4's tree in batches of BATCH, non-causal at the image head dim)
-    and once per text layer and prompt chunk (the 86-template heads in
-    chunks of TEXT_CHUNK, causal at the text head dim); no K1/K2. Returns
-    the counts by kernel and K4's by head dim and mask."""
+    """Phase 4b's (and 4d's) exact launches: K4 once per image layer and
+    image batch (phase 4's tree in batches of BATCH, non-causal at the image
+    head dim; none for a ConvNeXt tower, which has no attention) and once
+    per text layer and prompt chunk (the 86-template heads in chunks of
+    TEXT_CHUNK, causal at the text head dim); no K1/K2. Returns the counts
+    by kernel and K4's by head dim and mask."""
     image_batches = math.ceil(IMAGENET_WNIDS * IMAGES_PER_WNID / BATCH) + math.ceil(2 * N_DOMAINNET_CLASSES / BATCH)
     text_chunks = (math.ceil(N_TEMPLATES * N_IMAGENET_CLASSES / TEXT_CHUNK)
                    + math.ceil(N_TEMPLATES * N_DOMAINNET_CLASSES / TEXT_CHUNK))
-    image, text = cfg.vision.layers * image_batches, cfg.text.layers * text_chunks
-    by_shape = {f"D={cfg.vision.width // cfg.vision.heads}": image,
-                f"D={cfg.text.width // cfg.text.heads} causal": text}
-    return {"K1": 0, "K2": 0, "K4": image + text}, by_shape
+    v, t = cfg.vision, cfg.text
+    by_shape = {}
+    if not is_convnext(v):
+        by_shape[f"D={v.width // v.heads}"] = v.layers * image_batches
+    key = f"D={t.width // t.heads}{'' if t.no_causal_mask else ' causal'}"
+    by_shape[key] = by_shape.get(key, 0) + t.layers * text_chunks
+    return {"K1": 0, "K2": 0, "K4": sum(by_shape.values())}, by_shape
+
+
+def is_convnext(v) -> bool:
+    """Whether the vision config ``v`` is a ConvNeXt tower's (no attention)."""
+    from xclip_tpu_torch.models import convnext
+
+    return isinstance(v, convnext.ConvNeXtCfg)
+
+
+def tower_depth(v) -> int:
+    """Blocks of an image tower: a transformer's layers, a ConvNeXt's blocks."""
+    return sum(v.depths) if is_convnext(v) else v.layers
+
+
+def randomize_layer_scale(torch, model, gen) -> None:
+    """Seeded LayerScale gammas in [0.5, 1.5) in every ConvNeXt block of
+    ``model``, in place: the init's 1e-6 would keep the blocks out of the
+    features (as ``randomize_bn`` does for RN50's bn3)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma") and ".stages." in name:
+                p.copy_(torch.rand(p.shape, generator=gen).to(p.device) + 0.5)
 
 
 def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, classnames, name: str):
-    """Phase 4b: the zero-shot DomainNet-LSO evaluation of a seeded ViT
-    (``name``) at full width, bf16, on phase 4's tree, through
-    ``run_lso.main`` with exact K4 counts (split by head dim and mask, from
-    the calls that launched); one image batch and one text chunk timed and
-    profiled; 4 images and 4 prompts in fp32 on the card against the port on
-    the CPU. The ``.pt`` (about 10 GB for ViT-bigG-14) is deleted at the
-    end."""
+    """Phase 4b (and 4d): the zero-shot DomainNet-LSO evaluation of a seeded
+    ViT, EVA or ConvNeXt CLIP (``name``) at full width, bf16, on phase 4's
+    tree, through ``run_lso.main`` with exact K4 counts (split by head dim
+    and mask, from the calls that launched); one image batch and one text
+    chunk timed and profiled; 4 images and 4 prompts in fp32 on the card
+    against the port on the CPU, within VIT_CHECK_TOL. A ConvNeXt's
+    LayerScale gammas are seeded (``randomize_layer_scale``) before the
+    ``.pt`` is written. The ``.pt`` (about 10 GB for ViT-bigG-14) is
+    deleted at the end."""
     cfg = factory.get_clip_cfg(name)
     work = os.path.join(SCRATCH, f"vit_eval_{name}")
     ckpt = os.path.join(work, "epoch_1.pt")
     os.makedirs(work)
     t0 = time.perf_counter()
     model = factory.create_model(name, seed=0, device="cuda")
+    if is_convnext(cfg.vision):
+        randomize_layer_scale(torch, model, torch.Generator().manual_seed(15))
     n_params = sum(p.numel() for p in model.parameters())
     torch.save({"epoch": 1, "name": "chip_smoke", "state_dict": model.state_dict()}, ckpt)
     log(f"  {name} ({n_params / 1e9:.2f} B parameters) seed 0 created and saved "
@@ -1031,7 +1124,7 @@ def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenize
                           model_cpu.encode_text(ids, normalize=True))}
     errs = {k: float((gpu - cpu).abs().max()) for k, (gpu, cpu) in feats.items()}
     log(f"  {name} fp32 card vs CPU, unit-norm features of {VIT_CHECK} images / prompts: max_abs_err {errs} "
-        f"(tolerance {VIT_CHECK_TOL}: fp32 summation order through {cfg.vision.layers} + {cfg.text.layers} "
+        f"(tolerance {VIT_CHECK_TOL}: fp32 summation order through {tower_depth(cfg.vision)} + {cfg.text.layers} "
         f"blocks)")
     if not all(torch_all_finite(gpu) for gpu, _ in feats.values()) or max(errs.values()) > VIT_CHECK_TOL:
         fail(f"{name}: card and CPU disagree in fp32")
@@ -1041,11 +1134,105 @@ def phase_vit_lso(torch, factory, run_lso, fused_conv, flash_attention, tokenize
     return counts, rates
 
 
+def attention_routes(torch, flash_attention, fn, witness: bool = False):
+    """``fn()`` through K4, then with K4's wrapper swapped for its plain
+    version and, with ``witness``, for the plain version with P rounded to
+    q's dtype before P V (fp32 accumulation): what rounding P alone does to
+    a tower. Returns ({"kernel" | "plain" | "p_rounded": output}, K4
+    launches of the kernel route)."""
+    kernel = flash_attention.flash_attention
+
+    def plain(q, k, v, causal=False, sm_scale=None):
+        return flash_attention.flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+
+    def p_rounded(q, k, v, causal=False, sm_scale=None):
+        seq_len, head_dim = q.shape[-2], q.shape[-1]
+        s = (q.float() * (sm_scale or 1.0 / math.sqrt(head_dim))) @ k.float().transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(torch.ones(seq_len, seq_len, dtype=torch.bool, device=q.device).triu(1), -math.inf)
+        return (torch.softmax(s, dim=-1).to(q.dtype).float() @ v.float()).to(q.dtype)
+
+    torch.cuda.synchronize()
+    before = flash_attention.launches
+    out = {"kernel": fn()}
+    torch.cuda.synchronize()
+    launched = flash_attention.launches - before
+    routes = {"plain": plain, **({"p_rounded": p_rounded} if witness else {})}
+    try:
+        for name, route in routes.items():
+            flash_attention.flash_attention = route
+            out[name] = fn()
+    finally:
+        flash_attention.flash_attention = kernel
+    return out, launched
+
+
+def unit_rows(t):
+    return t / t.norm(dim=-1, keepdim=True)
+
+
+def block_update_err(torch, flash_attention, blocks, run) -> float:
+    """Each block's residual update (output - input) on K4's route against
+    the plain route's, on the input ``run()`` feeds that block through K4:
+    the largest ||got - ref|| / ||ref - input|| over ``blocks``. Unlike the
+    tower's output, this holds each launch at its real shapes and data
+    without the amplification of a deep tower."""
+    calls = []
+    hooks = [b.register_forward_pre_hook(lambda m, args, kwargs: calls.append((m, args, kwargs)), with_kwargs=True)
+             for b in blocks]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = 0.0
+    for m, args, kwargs in calls:
+        outs, _ = attention_routes(torch, flash_attention, lambda: m(*args, **kwargs))
+        x, got, ref = args[0].float(), outs["kernel"].float(), outs["plain"].float()
+        worst = max(worst, float((got - ref).norm() / (ref - x).norm()))
+    return worst
+
+
+def hold_tower_routes(torch, flash_attention, label: str, fn, dname: str, want: int, head_dim: int,
+                      blocks) -> dict:
+    """Phases 4c and 4e: a tower's unit-norm features (``fn()``) through K4
+    against the plain route, with ``want`` K4 launches at ``head_dim``. In
+    fp32 within VIT_TOWER_TOL in relative norm. In bf16 within
+    VIT_TOWER_TOL or TOWER_NOISE_RATIO times the witness's distance from
+    the plain route (the tower's own bf16 noise), whichever is larger, and
+    each of ``blocks``' updates within BLOCK_UPDATE_TOL
+    (``block_update_err``); the kernel route's batch is timed."""
+    outs, launched = attention_routes(torch, flash_attention, fn, witness=dname == "bf16")
+    outs = {route: unit_rows(o) for route, o in outs.items()}
+    got, ref = outs["kernel"], outs["plain"]
+    err = norm_rel_err(got, ref)
+    rec = {"launches": launched, "rel_err": err, "max_abs_err": float((got - ref).abs().max())}
+    tol, more, block_bad = VIT_TOWER_TOL[dname], "", False
+    if "p_rounded" in outs:
+        rec["p_rounded_rel_err"] = norm_rel_err(outs["p_rounded"], ref)
+        rec["kernel_vs_p_rounded_rel_err"] = norm_rel_err(got, outs["p_rounded"])
+        tol = max(tol, TOWER_NOISE_RATIO * rec["p_rounded_rel_err"])
+        rec["block_update_rel_err"] = block_update_err(torch, flash_attention, blocks, fn)
+        block_bad = rec["block_update_rel_err"] > BLOCK_UPDATE_TOL
+        rec["batch_ms"] = time_ms(fn, 200, 10)
+        more = (f"; witness (P rounded to bf16) vs plain {rec['p_rounded_rel_err']:.3g}, kernel vs witness "
+                f"{rec['kernel_vs_p_rounded_rel_err']:.3g}; worst block update rel err "
+                f"{rec['block_update_rel_err']:.3g} (tolerance {BLOCK_UPDATE_TOL}); {rec['batch_ms']:.2f} ms per batch")
+    rec["tolerance"] = tol
+    log(f"  {label} {dname} batch {got.shape[0]}: {launched} K4 launches at D={head_dim} (expected {want}); "
+        f"kernel vs plain attention, unit-norm features: rel err {err:.3g} (tolerance {tol:.3g}), "
+        f"max_abs_err {rec['max_abs_err']:.3g}" + more)
+    if launched != want or not torch_all_finite(got) or err > tol or block_bad:
+        fail(f"{label} {dname}: {launched} launches (expected {want}), rel err {err} (tolerance {tol}), "
+             f"block update rel err {rec.get('block_update_rel_err')}")
+    return rec
+
+
 def phase_vit_tower(torch, factory, flash_attention, name: str):
     """Phase 4c: a seeded image tower of ``name`` (ViT-H-14, -g-14, -e-14:
     head dims 80, 88, 112) encodes one batch through K4, in bf16 and fp32,
-    against the same tower with the plain attention on the card; K4's
-    launches counted."""
+    against the same tower with the plain attention on the card
+    (``hold_tower_routes``); K4's launches counted."""
     from xclip_tpu_torch.models.transformer import VisionTransformer
 
     cfg = factory.get_clip_cfg(name).vision
@@ -1061,32 +1248,85 @@ def phase_vit_tower(torch, factory, flash_attention, name: str):
     n_params = sum(p.numel() for p in tower.parameters())
     log(f"  {name} tower ({n_params / 1e6:.1f} M parameters, {cfg.layers} layers, width {cfg.width}, head dim {hd}) "
         f"on the card in {time.perf_counter() - t0:.1f} s")
-    kernel_route, res = flash_attention.flash_attention, {"head_dim": hd, "parameters": n_params}
+    res = {"head_dim": hd, "parameters": n_params}
     with torch.inference_mode():
         for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
-            torch.cuda.synchronize()
-            before = flash_attention.launches
-            got = tower(images, dtype=dt)
-            torch.cuda.synchronize()
-            launched = flash_attention.launches - before
-            flash_attention.flash_attention = lambda q, k, v, causal=False: flash_attention.flash_attention_plain(
-                q, k, v, causal=causal)
-            try:
-                ref = tower(images, dtype=dt)
-            finally:
-                flash_attention.flash_attention = kernel_route
-            got, ref = (t / t.norm(dim=-1, keepdim=True) for t in (got, ref))
-            err = norm_rel_err(got, ref)
-            res[dname] = {"launches": launched, "rel_err": err, "max_abs_err": float((got - ref).abs().max())}
-            if dname == "bf16":
-                res[dname]["batch_ms"] = time_ms(lambda: tower(images, dtype=dt), 200, 10)
-            log(f"  {name} {dname} batch {VIT_TOWER_BATCH}: {launched} K4 launches at D={hd} (expected "
-                f"{cfg.layers}); kernel vs plain attention, unit-norm features: rel err {err:.3g} "
-                f"(tolerance {VIT_TOWER_TOL[dname]}), max_abs_err {res[dname]['max_abs_err']:.3g}"
-                + (f"; {res[dname]['batch_ms']:.2f} ms per batch" if "batch_ms" in res[dname] else ""))
-            if launched != cfg.layers or not torch_all_finite(got) or err > VIT_TOWER_TOL[dname]:
-                fail(f"{name} {dname}: {launched} launches, rel err {err}")
+            res[dname] = hold_tower_routes(torch, flash_attention, name, lambda: tower(images, dtype=dt), dname,
+                                           cfg.layers, hd, tower.transformer.resblocks)
     del tower, images
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_timm_tower(torch, factory, flash_attention, name: str):
+    """Phase 4e: seeded timm towers at full width on the card, 64 images,
+    bf16 and fp32. EVA02-E-14's image tower and both towers of
+    ViT-SO400M-14-SigLIP (the text tower on TIMM_TEXT_BATCH seeded token
+    ids) through K4, one launch per layer, against the same towers with the
+    plain attention (``hold_tower_routes``, as phase 4c). convnext_xxlarge's
+    image tower has no attention, so both routes would be one computation:
+    its gammas are seeded, its bf16 batch timed, and it is held in fp32
+    against the port on the CPU on CONVNEXT_CPU_CHECK images."""
+    from xclip_tpu_torch.models import native_timm
+    from xclip_tpu_torch.models.clip import CLIP
+
+    cfg = factory.get_clip_cfg(name)
+    v = cfg.vision
+    with_text = name == SIGLIP
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = CLIP(cfg) if with_text else native_timm.build(v)
+    model.init_parameters(torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    tower = model.visual if with_text else model
+    n_params = sum(p.numel() for p in tower.parameters())
+    log(f"  {name} image tower ({n_params / 1e9:.2f} B parameters, {tower_depth(v)} blocks, width {v.width}) "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    images = torch.randn(VIT_TOWER_BATCH, v.image_size, v.image_size, 3, device="cuda", generator=gen)
+    res = {"parameters": n_params}
+    if is_convnext(v):
+        randomize_layer_scale(torch, model, torch.Generator().manual_seed(16))
+        with torch.inference_mode():
+            res["bf16"] = {"launches": 0, "image": {"batch_ms": time_ms(lambda: model(images, dtype=torch.bfloat16),
+                                                                        200, 10)}}
+            res["fp32"] = {"launches": 0}
+            with torch.device("meta"):
+                cpu = native_timm.build(v)
+            cpu = cpu.to_empty(device="cpu")
+            cpu.load_state_dict({k: p.cpu() for k, p in model.state_dict().items()})
+            x = images[:CONVNEXT_CPU_CHECK].cpu()
+            t0 = time.perf_counter()
+            want = unit_rows(cpu.eval()(x))
+            cpu_s = time.perf_counter() - t0
+            got = unit_rows(model(x.cuda())).cpu()
+        err = float((got - want).abs().max())
+        res["card_vs_cpu"] = {"max_abs_err": err, "cpu_s": cpu_s}
+        log(f"  {name} bf16 batch {VIT_TOWER_BATCH}: {res['bf16']['image']['batch_ms']:.2f} ms per batch; fp32 "
+            f"card vs CPU, unit-norm features of {CONVNEXT_CPU_CHECK} images: max_abs_err {err:.3g} (tolerance "
+            f"{VIT_CHECK_TOL}: fp32 summation order through {tower_depth(v)} blocks of convolutions; CPU "
+            f"{cpu_s:.1f} s)")
+        if not torch_all_finite(got) or err > VIT_CHECK_TOL:
+            fail(f"{name}: card and CPU disagree in fp32")
+        del cpu, model, tower, images
+        torch.cuda.empty_cache()
+        return res
+    # part -> (run in a dtype, K4 launches a run, head dim, the blocks that launch)
+    parts = {"image": (lambda dt: tower(images, dtype=dt), v.layers, v.width // v.heads, tower.trunk.blocks)}
+    if with_text:
+        t = cfg.text
+        ids = torch.randint(1, t.vocab_size, (TIMM_TEXT_BATCH, t.context_length), device="cuda", generator=gen)
+        parts["text"] = (lambda dt: model.encode_text(ids, dtype=dt), t.layers, t.width // t.heads,
+                         model.text_tower().transformer.resblocks)
+    res["head_dims"] = {part: hd for part, (_, _, hd, _) in parts.items()}
+    with torch.inference_mode():
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+            res[dname] = {"launches": 0}
+            for part, (fn, want, hd, blocks) in parts.items():
+                res[dname][part] = hold_tower_routes(torch, flash_attention, f"{name} {part}",
+                                                     lambda: fn(dt), dname, want, hd, blocks)
+                res[dname]["launches"] += res[dname][part]["launches"]
+    del model, tower, images
     torch.cuda.empty_cache()
     return res
 
@@ -3651,7 +3891,8 @@ def summarize(report, errs, counts, train_counts_, stats_records, stats_errs, bw
         ("K2", "matmul_affine_act (K2: conv3 + identity)", "fused_conv.cu", "fused_conv.py:67", "K1/K2 backward"),
         ("K3", "matmul_stats (K3: conv1 + BatchNorm batch sums, training)", "fused_conv.cu", "fused_conv.py:187",
          "K3 backward"),
-        ("K4", "flash_attention (K4: text self-attention, causal; ViT self-attention, non-causal)",
+        ("K4", "flash_attention (K4: text self-attention, causal; ViT, EVA and timm-ViT self-attention, "
+               "non-causal)",
          "flash_attention.cu", "flash_attention.py:31", "K4 backward"),
     )
     entries = []
@@ -3806,6 +4047,11 @@ def main() -> int:
         log("[phase 3c] K4 non-causal at the ViT paths' shapes (fp32, bf16, fp16)")
         vit = {}
         vit["records"], vit["errs"] = phase_vit_attention(torch, flash_attention, factory, dtypes)
+        log(f"[phase 3e] K4 at head dim 72 ({SIGLIP}'s image and text towers), fp32, bf16, fp16; causal checked")
+        records72, errs72 = phase_vit_attention(torch, flash_attention, factory, dtypes,
+                                                shapes=timm_attention_shapes(factory), causal_check=True)
+        vit["records"] += records72
+        vit["errs"] = {d: max(vit["errs"][d], errs72[d]) for d in vit["errs"]}
         phase_s = {"kernels": time.perf_counter() - t_start}
 
         log("[phase 4] main path: RN50 zero-shot DomainNet-LSO, bf16")
@@ -3826,6 +4072,15 @@ def main() -> int:
             log(f"[phase 4c] {name} image tower through K4")
             vit["towers"][name] = phase_vit_tower(torch, factory, flash_attention, name)
         phase_s["vit_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
+        for name in TIMM_LSO_MODELS:
+            log(f"[phase 4d] {name} zero-shot DomainNet-LSO at full width, bf16")
+            vit["lso_counts"][name], vit["lso"][name] = phase_vit_lso(
+                torch, factory, run_lso, fused_conv, flash_attention, tokenizer_mod, XCLIP_IMAGENET_CLASSES, name)
+        for name in TIMM_TOWERS:
+            log(f"[phase 4e] {name} at full width: towers through K4 vs the plain attention")
+            vit["towers"][name] = phase_timm_tower(torch, factory, flash_attention, name)
+        phase_s["timm_eval"] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"  phases 4d-4e took {phase_s['timm_eval']:.1f} s")
 
         log("[phase 5] training path: RN50, batch 128 x accum 2, amp, grad checkpointing, 12 steps")
         tcounts, training = phase_train(torch, factory, train_main, fused_conv, flash_attention, rn50)

@@ -329,3 +329,98 @@ def test_read_train_log(tmp_path):
                    "Batch (t): 0.431, 593.968/s, 593.968/s/gpu Scale: 14.286\n")
     lines, losses, rates = chip_smoke.read_train_log(str(log))
     assert len(lines) == 1 and losses == [5.5452] and rates == [593.968]
+
+
+def test_timm_attention_shapes_at_head_dim_72():
+    """Phase 3e's K4 shapes (B, H, L, D): ViT-SO400M-14-SigLIP's eval batch
+    of 250 at its 256 patch tokens (no class token) and a 2048-prompt chunk
+    of its 16-token text tower, both at head dim 72."""
+    assert [s[1:] for s in chip_smoke.timm_attention_shapes(factory)] == [(250, 16, 256, 72), (2048, 16, 16, 72)]
+
+
+@pytest.mark.parametrize("name,image_layers,head_dim,text_layers", [("EVA02-L-14", 24, 64, 12),
+                                                                    ("convnext_large_d", 0, None, 16)])
+def test_timm_lso_counts(name, image_layers, head_dim, text_layers):
+    """Phase 4d: EVA02-L-14's 4 image batches through 24 layers at head dim
+    64 share a key with nothing (its text tower is causal), 57 prompt
+    chunks through 12 text layers; convnext_large_d launches K4 only in its
+    16-layer text tower."""
+    assert name in chip_smoke.TIMM_LSO_MODELS
+    cfg = factory.get_clip_cfg(name)
+    by_shape = {"D=64 causal": text_layers * 57}
+    if image_layers:
+        by_shape = {f"D={head_dim}": image_layers * 4, **by_shape}
+    assert chip_smoke.vit_lso_counts(cfg) == ({"K1": 0, "K2": 0, "K4": sum(by_shape.values())}, by_shape)
+    assert chip_smoke.tower_depth(cfg.vision) == (24 if image_layers else 36)
+
+
+def test_timm_towers_cover_the_slice_shapes():
+    """Phase 4e: EVA02-E-14 (64 layers, width 1792, head dim 112, post-norm),
+    ViT-SO400M-14-SigLIP (27 + 27 layers at head dim 72; text not causal,
+    16 tokens) and convnext_xxlarge (no attention)."""
+    eva, siglip, convnext = (factory.get_clip_cfg(name) for name in chip_smoke.TIMM_TOWERS)
+    assert (eva.vision.layers, eva.vision.width, eva.vision.head_dim, eva.vision.post_norm) == (64, 1792, 112, True)
+    assert (siglip.vision.layers, siglip.vision.head_dim, siglip.vision.seq_len) == (27, 72, 256)
+    assert (siglip.text.layers, siglip.text.width // siglip.text.heads, siglip.text.context_length,
+            siglip.text.no_causal_mask) == (27, 72, 16, True)
+    assert chip_smoke.is_convnext(convnext.vision) and convnext.vision.dims[-1] == 3072
+    assert not any(chip_smoke.is_convnext(c.vision) for c in (eva, siglip))
+
+
+def test_randomize_layer_scale_touches_only_convnext_gammas():
+    import torch
+
+    from xclip_tpu_torch.models import convnext as port_convnext
+
+    cfg = port_convnext.ConvNeXtCfg((1, 1, 1, 1), (8, 16, 16, 32), 8, image_size=32)
+    tower = port_convnext.ConvNeXt(cfg)
+    tower.init_parameters(torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in tower.state_dict().items()}
+    chip_smoke.randomize_layer_scale(torch, tower, torch.Generator().manual_seed(1))
+    for key, val in tower.state_dict().items():
+        if key.endswith(".gamma"):
+            assert float(val.min()) >= 0.5 and float(val.max()) < 1.5
+        else:
+            assert torch.equal(val, before[key]), key
+
+
+def test_tower_gate_holds_bf16_to_the_witness_and_catches_a_wrong_route(monkeypatch):
+    """Phases 4c and 4e's rule on a tiny EVA02 tower on the CPU (where K4's
+    wrapper runs the plain version, so the kernel route equals the plain
+    one): bf16 passes with the tolerance max(1e-2, 1.25 x the witness's
+    distance) and every block checked; an attention route that is off by
+    2 % fails the tower, and in fp32 as well."""
+    import numpy as np
+    import torch
+
+    from xclip_tpu_torch.models import eva
+    from xclip_tpu_torch.ops import flash_attention
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, *a: 1.0)
+    torch.set_num_threads(1)
+    cfg = eva.EvaCfg(timm_name="eva02_test", output_dim=24, image_size=32, patch_size=8, width=64, layers=2,
+                     heads=1, mlp_ratio=4 * 2 / 3, qkv_fused=False, swiglu=True, rope=True, ref_grid=4)
+    tower = eva.Eva(cfg)
+    tower.init_parameters(torch.Generator().manual_seed(0))
+    tower.eval()
+    x = torch.from_numpy(np.random.RandomState(0).randn(3, 32, 32, 3).astype(np.float32))
+    blocks, calls = tower.trunk.blocks, []
+    with torch.inference_mode():
+        rec = chip_smoke.hold_tower_routes(torch, flash_attention, "tiny", lambda: tower(x, dtype=torch.bfloat16),
+                                           "bf16", 0, 64, blocks)
+        assert rec["rel_err"] == 0 and rec["block_update_rel_err"] == 0 and rec["p_rounded_rel_err"] > 0
+        assert rec["tolerance"] == max(chip_smoke.VIT_TOWER_TOL["bf16"],
+                                       chip_smoke.TOWER_NOISE_RATIO * rec["p_rounded_rel_err"])
+        plain = flash_attention.flash_attention
+
+        def off(q, k, v, causal=False, sm_scale=None):
+            calls.append(q.shape)
+            return plain(q, k, v, causal=causal, sm_scale=sm_scale) * 1.02
+
+        monkeypatch.setattr(flash_attention, "flash_attention", off)
+        for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+            with pytest.raises(SystemExit, match="rel err"):
+                chip_smoke.hold_tower_routes(torch, flash_attention, "tiny", lambda: tower(x, dtype=dt), dname,
+                                             0, 64, blocks)
+    assert len(calls) >= 2 * cfg.layers

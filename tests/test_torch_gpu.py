@@ -185,16 +185,41 @@ def test_flash_attention_bigg_image_batch_matches_plain(cuda, dt):
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
 
 
+# ViT-SO400M-14-SigLIP's head dim 72 (width 1152, 16 heads) in both of its
+# towers: 72 = 4 x 16 + 8, the 8-wide tail of 88 and 104. Lengths: one key,
+# a slab + 1, its text tower's 16 and the 64 of the 384-px config's text,
+# a stage + 1, 197, its 224-px image tower's 256 (no class token) and the
+# 384-px tower's 729.
+HEAD_DIM_72_LENGTHS = [1, 16, 17, 64, 65, 197, 256, 729]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [72, 96])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("l", HEAD_DIM_72_LENGTHS)
+def test_flash_attention_head_dim_72_matches_plain(cuda, dt, l):
+    """Head dim 72, non-causal and causal: the kernel against its plain
+    version, the last 8 output columns on their own as well."""
+    gen = torch.Generator().manual_seed(l + 72)
+    q, k, v = (torch.randn(2, 3, l, 72, generator=gen).to(dt).cuda() for _ in range(3))
+    before = flash_attention.launches
+    for causal in (False, True):
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got[..., 64:].float(), ref[..., 64:].float(), atol=TOL[dt], rtol=TOL[dt])
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dt], rtol=TOL[dt])
+    assert flash_attention.launches == before + 2
+    torch.testing.assert_close(flash_attention.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v)),
+                               flash_attention.flash_attention(q, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [56, 96])
 def test_flash_attention_names_head_dims_it_lacks(cuda, d):
-    """A head dim with no kernel instance (72: the text towers of the
-    SO400M-SigLIP and ViTamin-XL configs, which the port does not build
-    yet; 96: no config): the wrapper raises, naming the head dims it has,
-    and launches nothing."""
+    """A head dim with no kernel instance (56 and 96: no config): the
+    wrapper raises, naming the head dims it has, and launches nothing."""
     q = torch.randn(1, 2, 257, d, device="cuda", dtype=torch.bfloat16)
     before = flash_attention.launches
-    with pytest.raises(ValueError, match=f"head dims \\(64, 80, 88, 104, 112\\); got {d}"):
+    with pytest.raises(ValueError, match=f"head dims \\(64, 72, 80, 88, 104, 112\\); got {d}"):
         flash_attention.flash_attention(q, q, q)
     assert flash_attention.launches == before
 
@@ -429,6 +454,40 @@ def test_tiny_vit_card_matches_cpu(cuda, monkeypatch):
                                    cpu.encode_text(ids, normalize=True), atol=1e-4, rtol=0)
         feats = gpu.encode_image(x.cuda(), normalize=True, dtype=torch.bfloat16)
     assert torch.isfinite(feats).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [None, torch.bfloat16])
+def test_tiny_eva02_tower_kernel_matches_plain_route(cuda, dt):
+    """A seeded tiny EVA02 tower (RoPE, SwiGLU, head dim 64, 2 layers) on the
+    card: K4's route against the same tower with the plain attention, fp32
+    and bf16 (unit-norm features, 1e-4 and 1e-2 in relative norm), K4
+    launched once per layer; the fp32 features also against the CPU."""
+    from xclip_tpu_torch.models import eva
+
+    cfg = eva.EvaCfg(timm_name="eva02_test", output_dim=24, image_size=64, patch_size=8, width=128, layers=2,
+                     heads=2, mlp_ratio=4 * 2 / 3, qkv_fused=False, swiglu=True, rope=True, ref_grid=4)
+    cpu = eva.Eva(cfg)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    gpu = eva.Eva(cfg).cuda().eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).randn(5, 64, 64, 3).astype(np.float32))
+    kernel = flash_attention.flash_attention
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = gpu(x.cuda(), dtype=dt)
+        assert flash_attention.launches == before + cfg.layers
+        flash_attention.flash_attention = lambda q, k, v, causal=False: flash_attention.flash_attention_plain(
+            q, k, v, causal=causal)
+        try:
+            ref = gpu(x.cuda(), dtype=dt)
+        finally:
+            flash_attention.flash_attention = kernel
+        got, ref = (t / t.norm(dim=-1, keepdim=True) for t in (got, ref))
+        assert float((got - ref).norm() / ref.norm()) <= (1e-4 if dt is None else 1e-2)
+        if dt is None:
+            want = cpu.eval()(x)
+            torch.testing.assert_close(got.cpu(), want / want.norm(dim=-1, keepdim=True), atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu

@@ -246,8 +246,9 @@ def test_factory_configs_and_devices():
     assert cfg.vision.heads == 32 and cfg.embed_dim == 1024
     vit = factory.get_clip_cfg("ViT-B-32").vision  # the ViT towers are ported since the ViT slice
     assert (vit.width, vit.heads, vit.seq_len) == (768, 12, 50)
-    with pytest.raises(NotImplementedError, match="timm_model_name"):  # timm towers are not
-        factory.get_clip_cfg("convnext_base")
+    assert factory.get_clip_cfg("convnext_base").vision.dims[-1] == 1024  # ConvNeXt since the timm slice
+    with pytest.raises(NotImplementedError, match="swin.*later slice"):  # the swin family is not ported yet
+        factory.get_clip_cfg("swin_base_patch4_window7_224")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             factory.create_model("RN50")

@@ -71,8 +71,11 @@ def test_modules_import_and_run_with_jax_blocked():
     classifier step with its native checkpoint, the macro F1, a tiny
     RN's class circuit with its graph, WL similarity and DOT source, CKA
     and concept names (networkx and graphviz refused too), DomainNet
-    captions and an LSO mixture, a tar shard read, and the embedding
-    analysis (webdataset, umap-learn and matplotlib refused: no figures)."""
+    captions and an LSO mixture, a tar shard read, the embedding
+    analysis (webdataset, umap-learn and matplotlib refused: no figures),
+    and tiny towers of the timm families (EVA02 with RoPE, ConvNeXt, a
+    SigLIP timm ViT and a relpos ViT) built through ``native_timm`` with
+    ``tower_common``'s init."""
     code = (
         "import importlib, importlib.abc, sys\n"
         "import importlib.machinery\n"
@@ -168,6 +171,18 @@ def test_modules_import_and_run_with_jax_blocked():
         "with contextlib.redirect_stdout(out):\n"
         "    embedding_analysis.main(['--features_path', d + '/f', '--out_path', d + '/e', '--device', 'cpu'])\n"
         "assert 'figures: none' in out.getvalue() and np.load(d + '/e/embedding.npy').shape == (40, 2)\n"
+        "from xclip_tpu_torch.models import convnext, eva, native_timm, timm_vit, tower_common\n"
+        "for tcfg in (eva.EvaCfg('t', 8, image_size=32, patch_size=8, width=32, layers=1, heads=2, mlp_ratio=8 / 3,\n"
+        "                        qkv_fused=False, swiglu=True, rope=True, ref_grid=4),\n"
+        "             convnext.ConvNeXtCfg((1, 1, 1, 1), (8, 16, 16, 32), 8, image_size=32, proj='mlp'),\n"
+        "             timm_vit.TimmViTCfg('t', 8, image_size=32, patch_size=8, width=32, layers=1, heads=2,\n"
+        "                                 proj='linear'),\n"
+        "             timm_vit.TimmViTCfg('t', 8, image_size=32, patch_size=8, width=32, layers=1, heads=2,\n"
+        "                                 pool='token', proj='linear', class_token=True, rel_pos=True, rel_pos_dim=8)):\n"
+        "    tower = native_timm.build(tcfg)\n"
+        "    tower.init_parameters(torch.Generator().manual_seed(0))\n"
+        "    assert isinstance(tower.trunk, torch.nn.Module) and tower_common.TRUNC_STD == 0.02\n"
+        "    assert tower.eval()(torch.randn(2, 32, 32, 3)).shape == (2, 8)\n"
         "for banned in ('sklearn', 'networkx', 'graphviz', 'webdataset', 'umap', 'matplotlib'):\n"
         "    try:\n"
         "        __import__(banned)\n"

@@ -118,11 +118,12 @@ def test_flash_attention_vit_head_dims_match_pallas(l, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [88, 104, 112])
+@pytest.mark.parametrize("d", [72, 88, 104, 112])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_large_head_dims_match_pallas(d, causal):
     """K4 plain vs the Pallas kernel in interpret mode at the head dims of
-    ViT-g-14 (88), ViT-bigG-14 (104) and ViT-e-14 (112), causal and not, at
+    ViT-SO400M-14-SigLIP (72), ViT-g-14 (88), ViT-bigG-14 (104) and ViT-e-14
+    (112), causal and not, at
     a ragged length (37: one partial 64-row block): fp32, atol 2e-5, rtol
     1e-4."""
     q, k, v = _qkv(1, 1, 37, d, seed=d + causal)

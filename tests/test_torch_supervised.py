@@ -603,9 +603,21 @@ def test_supervised_launchers_parse(tmp_path):
     assert [port_sup_eval.epoch_from_file(f) for f in args.ckpt_files] == [0, 5]
 
 
-@pytest.mark.parametrize("name", ["RN50", "ViT-B-32"])
+# the committed goldens the port builds: RN50 and ViT-B-32; the timm
+# families' smallest members (EVA02, ConvNeXt, the gap and relpos medium
+# ViTs, a SigLIP CLIP with its text tower); the ResNet and ViT variants
+# (RN101, RN50x4, ViT-B-16, quick_gelu, LayerScale). The three whose JAX
+# init costs most on the CPU run under ``slow``.
+GOLDEN_NAMES = ["RN50", "ViT-B-32", "EVA02-B-16", "convnext_tiny", "vit_medium_patch16_gap_256",
+                "vit_relpos_medium_patch16_cls_224", "ViT-B-16-SigLIP", "RN101", "RN50x4", "ViT-B-16",
+                "ViT-B-32-quickgelu", "ViT-M-16-alt"] + [
+    pytest.param(name, marks=pytest.mark.slow) for name in ("ViT-SO400M-14-SigLIP", "convnext_large_d",
+                                                            "ViT-L-14-CLIPA")]
+
+
+@pytest.mark.parametrize("name", GOLDEN_NAMES)
 def test_full_width_tower_matches_golden(name):
-    """RN50 and ViT-B-32 at full width: JAX's seeded init
+    """A committed golden config at full width: JAX's seeded init
     (``create_model(name, pretrained_hf=False)``, as the golden test
     builds it) carried into the port, on the golden test's 2 seeded images
     and texts on the CPU, against ``tests/goldens/<name>.npz`` at the golden

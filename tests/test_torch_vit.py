@@ -276,13 +276,11 @@ def _plain_vit_configs():
 def test_vit_config_matches_jax(name):
     """Every plain-ViT config in the assets: the port's config holds JAX
     ``factory.get_clip_cfg``'s value in each field both have (no weights
-    built); SigLIP's ``init_logit_bias`` is refused by name."""
+    built), SigLIP's ``init_logit_bias`` included (ported since the timm
+    slice)."""
     want = jax_factory.get_clip_cfg(name)
-    if want.init_logit_bias is not None:
-        with pytest.raises(NotImplementedError, match="init_logit_bias"):
-            factory.get_clip_cfg(name)
-        return
     got = factory.get_clip_cfg(name)
+    assert got.init_logit_bias == want.init_logit_bias
     for part in ("vision", "text"):
         g, w = getattr(got, part), getattr(want, part)
         for field in g.__dataclass_fields__:
@@ -344,8 +342,9 @@ def test_factory_forces_image_size_and_patch_dropout():
     want = jax_factory.get_clip_cfg("ViT-B-16", force_image_size=112, force_patch_dropout=0.5)
     assert (cfg.vision.image_size, cfg.vision.seq_len, cfg.vision.patch_dropout) == (112, 50, 0.5)
     assert (want.vision.image_size, want.vision.patch_dropout) == (112, 0.5)
-    with pytest.raises(NotImplementedError, match="timm_model_name"):
-        factory.get_clip_cfg("convnext_base")
+    assert factory.get_clip_cfg("convnext_base", force_image_size=320).image_size == 320  # timm towers too
+    with pytest.raises(NotImplementedError, match="swin.*later slice"):
+        factory.get_clip_cfg("swin_base_patch4_window7_224")
     with pytest.raises(NotImplementedError, match="multimodal_cfg"):
         factory.get_clip_cfg("coca_ViT-B-32")
     with pytest.raises(NotImplementedError, match="hf_model_name"):

@@ -22,6 +22,11 @@
   separate q/k/v projections the packed ``in_proj_*`` (the attentional
   pooler's stay separate when its key width differs, as in
   ``nn.MultiheadAttention``), LayerScale gammas ``ls_1.gamma``/``ls_2.gamma``;
+  a timm image tower (ConvNeXt, EVA, timm ViT) through its family's bridge
+  in ``models/native_timm.py`` (``visual.trunk.*``, ``visual.head.*``), a
+  ``custom_text`` tower under ``text.`` (checkpoint.py:409-410, 574-576)
+  with its ``nn.Linear`` projection where ``proj_bias`` is set, and
+  ``logit_bias``;
 - the JAX package's native ``.npz`` format (``flatten_pytree``,
   ``unflatten_into``, ``save_native``, ``load_native``; checkpoint.py:42-112,
   652-684), in which the supervised classifier is saved: its weights cross
@@ -40,6 +45,9 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+# the linear and LayerNorm layouts, shared with the timm towers' bridges
+from xclip_tpu_torch.models.tower_common import array, read_linear, read_ln, tensor, write_linear, write_ln
 
 
 def load_open_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -137,44 +145,28 @@ def resize_text_pos_embed(pe: torch.Tensor, context_length: int) -> torch.Tensor
 
 
 def resize_pos_embeds(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
-    """``sd`` with its ViT and text positional embeddings resampled to
-    ``cfg``'s (the port's ``CLIPCfg``) grid and context length, in place."""
+    """``sd`` with its ViT and text positional embeddings (inline or under
+    ``text.``) resampled to ``cfg``'s (the port's ``CLIPCfg``) grid and
+    context length, in place. A timm trunk's ``pos_embed`` is left as it
+    is, as JAX's loader leaves it."""
     if "visual.positional_embedding" in sd:
         sd["visual.positional_embedding"] = resize_vit_pos_embed(sd["visual.positional_embedding"],
                                                                  cfg.vision.seq_len)
-    if "positional_embedding" in sd:
-        sd["positional_embedding"] = resize_text_pos_embed(sd["positional_embedding"], cfg.text.context_length)
+    for key in ("positional_embedding", "text.positional_embedding"):
+        if key in sd:
+            sd[key] = resize_text_pos_embed(sd[key], cfg.text.context_length)
     return sd
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)).copy())
-
-
 def _conv(k) -> torch.Tensor:
-    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))  # HWIO -> OIHW
-
-
-def _lin(k) -> torch.Tensor:
-    return _t(np.asarray(k).T)  # (in, out) -> (out, in)
-
-
-def _put_lin(sd, dst, src) -> None:
-    sd[f"{dst}.weight"] = _lin(src["kernel"])
-    if "bias" in src:
-        sd[f"{dst}.bias"] = _t(src["bias"])
-
-
-def _put_ln(sd, dst, src) -> None:
-    sd[f"{dst}.weight"] = _t(src["scale"])
-    sd[f"{dst}.bias"] = _t(src["bias"])
+    return tensor(np.transpose(np.asarray(k), (3, 2, 0, 1)))  # HWIO -> OIHW
 
 
 def _put_bn(sd, dst, src_p, src_s) -> None:
-    sd[f"{dst}.weight"] = _t(src_p["scale"])
-    sd[f"{dst}.bias"] = _t(src_p["bias"])
-    sd[f"{dst}.running_mean"] = _t(src_s["mean"])
-    sd[f"{dst}.running_var"] = _t(src_s["var"])
+    sd[f"{dst}.weight"] = tensor(src_p["scale"])
+    sd[f"{dst}.bias"] = tensor(src_p["bias"])
+    sd[f"{dst}.running_mean"] = tensor(src_s["mean"])
+    sd[f"{dst}.running_var"] = tensor(src_s["var"])
     sd[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
@@ -193,47 +185,47 @@ def bottleneck_state_dict(params: Mapping, state: Mapping, prefix: str = "") -> 
 
 def _put_block(sd, dst, src) -> None:
     """One residual attention block (``transformer.block_init``)."""
-    _put_ln(sd, f"{dst}.ln_1", src["ln_1"])
+    write_ln(sd, f"{dst}.ln_1", src["ln_1"])
     attn = src["attn"]
-    sd[f"{dst}.attn.in_proj_weight"] = _t(np.concatenate(
+    sd[f"{dst}.attn.in_proj_weight"] = tensor(np.concatenate(
         [np.asarray(attn[n]["kernel"]).T for n in ("q", "k", "v")], axis=0))
-    sd[f"{dst}.attn.in_proj_bias"] = _t(np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q", "k", "v")]))
-    _put_lin(sd, f"{dst}.attn.out_proj", attn["out"])
-    _put_ln(sd, f"{dst}.ln_2", src["ln_2"])
-    _put_lin(sd, f"{dst}.mlp.c_fc", src["mlp"]["c_fc"])
-    _put_lin(sd, f"{dst}.mlp.c_proj", src["mlp"]["c_proj"])
+    sd[f"{dst}.attn.in_proj_bias"] = tensor(np.concatenate([np.asarray(attn[n]["bias"]) for n in ("q", "k", "v")]))
+    write_linear(sd, f"{dst}.attn.out_proj", attn["out"])
+    write_ln(sd, f"{dst}.ln_2", src["ln_2"])
+    write_linear(sd, f"{dst}.mlp.c_fc", src["mlp"]["c_fc"])
+    write_linear(sd, f"{dst}.mlp.c_proj", src["mlp"]["c_proj"])
     for ls in ("ls_1", "ls_2"):
         if ls in src:
-            sd[f"{dst}.{ls}.gamma"] = _t(src[ls])
+            sd[f"{dst}.{ls}.gamma"] = tensor(src[ls])
 
 
 def _vit_state_dict(vp: Mapping) -> Dict[str, torch.Tensor]:
     """``visual.*`` of a ViT tower from JAX's ``vit_init`` params."""
     sd: Dict[str, torch.Tensor] = {
         "visual.conv1.weight": _conv(vp["conv1"]["kernel"]),
-        "visual.class_embedding": _t(vp["class_embedding"]),
-        "visual.positional_embedding": _t(vp["positional_embedding"]),
-        "visual.proj": _t(vp["proj"]),
+        "visual.class_embedding": tensor(vp["class_embedding"]),
+        "visual.positional_embedding": tensor(vp["positional_embedding"]),
+        "visual.proj": tensor(vp["proj"]),
     }
     if "ln_pre" in vp:  # absent for no_ln_pre towers
-        _put_ln(sd, "visual.ln_pre", vp["ln_pre"])
-    _put_ln(sd, "visual.ln_post", vp["ln_post"])
+        write_ln(sd, "visual.ln_pre", vp["ln_pre"])
+    write_ln(sd, "visual.ln_post", vp["ln_post"])
     for i, block in enumerate(vp["blocks"]):
         _put_block(sd, f"visual.transformer.resblocks.{i}", block)
     if "attn_pool" in vp:
         ap = vp["attn_pool"]
-        sd["visual.attn_pool.query"] = _t(ap["query"])
+        sd["visual.attn_pool.query"] = tensor(ap["query"])
         w = {n: np.asarray(ap["attn"][n]["kernel"]).T for n in ("q", "k", "v")}
         if w["q"].shape == w["k"].shape == w["v"].shape:
-            sd["visual.attn_pool.attn.in_proj_weight"] = _t(np.concatenate([w["q"], w["k"], w["v"]]))
+            sd["visual.attn_pool.attn.in_proj_weight"] = tensor(np.concatenate([w["q"], w["k"], w["v"]]))
         else:
             for n in ("q", "k", "v"):
-                sd[f"visual.attn_pool.attn.{n}_proj_weight"] = _t(w[n])
-        sd["visual.attn_pool.attn.in_proj_bias"] = _t(np.concatenate(
+                sd[f"visual.attn_pool.attn.{n}_proj_weight"] = tensor(w[n])
+        sd["visual.attn_pool.attn.in_proj_bias"] = tensor(np.concatenate(
             [np.asarray(ap["attn"][n]["bias"]) for n in ("q", "k", "v")]))
-        _put_lin(sd, "visual.attn_pool.attn.out_proj", ap["attn"]["out"])
-        _put_ln(sd, "visual.attn_pool.ln_q", ap["ln_q"])
-        _put_ln(sd, "visual.attn_pool.ln_k", ap["ln_k"])
+        write_linear(sd, "visual.attn_pool.attn.out_proj", ap["attn"]["out"])
+        write_ln(sd, "visual.attn_pool.ln_q", ap["ln_q"])
+        write_ln(sd, "visual.attn_pool.ln_k", ap["ln_k"])
     return sd
 
 
@@ -251,32 +243,44 @@ def visual_state_dict_from_jax(vp: Mapping, vs: Optional[Mapping], cfg) -> Dict[
                 sd.update(bottleneck_state_dict(vp[f"layer{li + 1}"][b], vs[f"layer{li + 1}"][b],
                                                 prefix=f"visual.layer{li + 1}.{b}."))
         ap = vp["attnpool"]
-        sd["visual.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+        sd["visual.attnpool.positional_embedding"] = tensor(ap["positional_embedding"])
         for name, dst_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "c_proj")):
-            _put_lin(sd, f"visual.attnpool.{dst_name}", ap[name])
+            write_linear(sd, f"visual.attnpool.{dst_name}", ap[name])
     else:
         sd.update(_vit_state_dict(vp))
     return sd
 
 
 def state_dict_from_jax_params(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """Port state dict from JAX ``(params, state)`` of a ResNet or ViT CLIP.
+    """Port state dict from JAX ``(params, state)`` of a CLIP.
 
     ``params``/``state`` are the pytrees of ``xclip_tpu.models.clip.CLIPModel``
-    with numpy leaves; ``cfg`` is this port's ``CLIPCfg`` (or the JAX one:
-    only ``vision.layers`` and ``text.layers`` are read; ``state`` only for
-    a ResNet).
+    with numpy leaves; ``cfg`` is this port's ``CLIPCfg`` (for a ResNet or a
+    plain ViT the JAX one also serves: only ``vision.layers``,
+    ``text.layers`` and ``custom_text`` are read there; ``state`` only for a
+    ResNet).
     """
-    resnet = isinstance(cfg.vision.layers, (list, tuple))
-    sd = visual_state_dict_from_jax(params["visual"], state["visual"] if resnet else None, cfg)
+    from xclip_tpu_torch.models import native_timm
+
+    if native_timm.is_native_timm(cfg.vision):
+        sd = {f"visual.{k}": v for k, v in native_timm.params_to_state_dict(params["visual"], cfg.vision).items()}
+    else:
+        resnet = isinstance(cfg.vision.layers, (list, tuple))
+        sd = visual_state_dict_from_jax(params["visual"], state["visual"] if resnet else None, cfg)
     tp = params["text"]
-    sd["token_embedding.weight"] = _t(tp["token_embedding"])
-    sd["positional_embedding"] = _t(tp["positional_embedding"])
-    sd["text_projection"] = _t(tp["text_projection"])
-    _put_ln(sd, "ln_final", tp["ln_final"])
+    pre = "text." if getattr(cfg, "custom_text", False) else ""
+    sd[f"{pre}token_embedding.weight"] = tensor(tp["token_embedding"])
+    sd[f"{pre}positional_embedding"] = tensor(tp["positional_embedding"])
+    if isinstance(tp["text_projection"], Mapping):  # proj_bias: an nn.Linear
+        write_linear(sd, f"{pre}text_projection", tp["text_projection"])
+    else:
+        sd[f"{pre}text_projection"] = tensor(tp["text_projection"])
+    write_ln(sd, f"{pre}ln_final", tp["ln_final"])
     for i in range(cfg.text.layers):
-        _put_block(sd, f"transformer.resblocks.{i}", tp["blocks"][i])
-    sd["logit_scale"] = _t(np.asarray(params["logit_scale"]).reshape(()))
+        _put_block(sd, f"{pre}transformer.resblocks.{i}", tp["blocks"][i])
+    sd["logit_scale"] = tensor(np.asarray(params["logit_scale"]).reshape(()))
+    if "logit_bias" in params:
+        sd["logit_bias"] = tensor(np.asarray(params["logit_bias"]).reshape(()))
     return sd
 
 
@@ -349,27 +353,12 @@ def load_native(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]
     return pflat, sflat, extras
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", torch.float32).numpy().copy()
-
-
-def _get_lin(sd, name: str) -> dict:
-    out = {"kernel": _np(sd[f"{name}.weight"]).T.copy()}
-    if f"{name}.bias" in sd:
-        out["bias"] = _np(sd[f"{name}.bias"])
-    return out
-
-
-def _get_scale_bias(sd, name: str) -> dict:
-    return {"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
-
-
 def _get_conv(sd, name: str) -> dict:
-    return {"kernel": np.transpose(_np(sd[name]), (2, 3, 1, 0)).copy()}  # OIHW -> HWIO
+    return {"kernel": np.transpose(array(sd[name]), (2, 3, 1, 0)).copy()}  # OIHW -> HWIO
 
 
 def _get_bn_stats(sd, name: str) -> dict:
-    return {"mean": _np(sd[f"{name}.running_mean"]), "var": _np(sd[f"{name}.running_var"])}
+    return {"mean": array(sd[f"{name}.running_mean"]), "var": array(sd[f"{name}.running_var"])}
 
 
 def visual_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Tuple[dict, dict]:
@@ -383,30 +372,30 @@ def visual_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Tuple
             raise NotImplementedError("the attentional pooler has no JAX pytree bridge in the port")
         width = cfg.vision.width
         vp = {"conv1": _get_conv(sd, "visual.conv1.weight"),
-              "class_embedding": _np(sd["visual.class_embedding"]),
-              "positional_embedding": _np(sd["visual.positional_embedding"]),
-              "blocks": [], "ln_post": _get_scale_bias(sd, "visual.ln_post"), "proj": _np(sd["visual.proj"])}
+              "class_embedding": array(sd["visual.class_embedding"]),
+              "positional_embedding": array(sd["visual.positional_embedding"]),
+              "blocks": [], "ln_post": read_ln(sd, "visual.ln_post"), "proj": array(sd["visual.proj"])}
         if "visual.ln_pre.weight" in sd:
-            vp["ln_pre"] = _get_scale_bias(sd, "visual.ln_pre")
+            vp["ln_pre"] = read_ln(sd, "visual.ln_pre")
         for i in range(cfg.vision.layers):
             src = f"visual.transformer.resblocks.{i}"
-            w, b = _np(sd[f"{src}.attn.in_proj_weight"]), _np(sd[f"{src}.attn.in_proj_bias"])
+            w, b = array(sd[f"{src}.attn.in_proj_weight"]), array(sd[f"{src}.attn.in_proj_bias"])
             attn = {n: {"kernel": w[j * width:(j + 1) * width].T.copy(), "bias": b[j * width:(j + 1) * width]}
                     for j, n in enumerate(("q", "k", "v"))}
-            attn["out"] = _get_lin(sd, f"{src}.attn.out_proj")
-            block = {"ln_1": _get_scale_bias(sd, f"{src}.ln_1"), "attn": attn,
-                     "ln_2": _get_scale_bias(sd, f"{src}.ln_2"),
-                     "mlp": {"c_fc": _get_lin(sd, f"{src}.mlp.c_fc"), "c_proj": _get_lin(sd, f"{src}.mlp.c_proj")}}
+            attn["out"] = read_linear(sd, f"{src}.attn.out_proj")
+            block = {"ln_1": read_ln(sd, f"{src}.ln_1"), "attn": attn,
+                     "ln_2": read_ln(sd, f"{src}.ln_2"),
+                     "mlp": {"c_fc": read_linear(sd, f"{src}.mlp.c_fc"), "c_proj": read_linear(sd, f"{src}.mlp.c_proj")}}
             for ls in ("ls_1", "ls_2"):
                 if f"{src}.{ls}.gamma" in sd:
-                    block[ls] = _np(sd[f"{src}.{ls}.gamma"])
+                    block[ls] = array(sd[f"{src}.{ls}.gamma"])
             vp["blocks"].append(block)
         return vp, {}
     vp: dict = {"stem": {}}
     vs: dict = {"stem": {}}
     for i in (1, 2, 3):
         vp["stem"][f"conv{i}"] = _get_conv(sd, f"visual.conv{i}.weight")
-        vp["stem"][f"bn{i}"] = _get_scale_bias(sd, f"visual.bn{i}")
+        vp["stem"][f"bn{i}"] = read_ln(sd, f"visual.bn{i}")
         vs["stem"][f"bn{i}"] = _get_bn_stats(sd, f"visual.bn{i}")
     for li, blocks in enumerate(cfg.vision.layers):
         vp[f"layer{li + 1}"], vs[f"layer{li + 1}"] = [], []
@@ -415,17 +404,17 @@ def visual_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Tuple
             bp, bs = {}, {}
             for ci in (1, 2, 3):
                 bp[f"conv{ci}"] = _get_conv(sd, f"{src}.conv{ci}.weight")
-                bp[f"bn{ci}"] = _get_scale_bias(sd, f"{src}.bn{ci}")
+                bp[f"bn{ci}"] = read_ln(sd, f"{src}.bn{ci}")
                 bs[f"bn{ci}"] = _get_bn_stats(sd, f"{src}.bn{ci}")
             if f"{src}.downsample.0.weight" in sd:
                 bp["downsample"] = {"conv": _get_conv(sd, f"{src}.downsample.0.weight"),
-                                    "bn": _get_scale_bias(sd, f"{src}.downsample.1")}
+                                    "bn": read_ln(sd, f"{src}.downsample.1")}
                 bs["downsample_bn"] = _get_bn_stats(sd, f"{src}.downsample.1")
             vp[f"layer{li + 1}"].append(bp)
             vs[f"layer{li + 1}"].append(bs)
-    vp["attnpool"] = {"positional_embedding": _np(sd["visual.attnpool.positional_embedding"])}
+    vp["attnpool"] = {"positional_embedding": array(sd["visual.attnpool.positional_embedding"])}
     for name, src_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "c_proj")):
-        vp["attnpool"][name] = _get_lin(sd, f"visual.attnpool.{src_name}")
+        vp["attnpool"][name] = read_linear(sd, f"visual.attnpool.{src_name}")
     return vp, vs
 
 
@@ -434,7 +423,7 @@ def classifier_pytrees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> T
     pytrees from the port classifier's state dict (``visual.*``, ``head.*``);
     ``cfg`` is the backbone's ``CLIPCfg``."""
     vp, vs = visual_pytrees_from_state_dict(sd, cfg)
-    return {"backbone": vp, "head": _get_lin(sd, "head")}, {"visual": vs}
+    return {"backbone": vp, "head": read_linear(sd, "head")}, {"visual": vs}
 
 
 def classifier_state_dict_from_pytrees(params: Mapping, state: Mapping, cfg) -> Dict[str, torch.Tensor]:
@@ -443,5 +432,5 @@ def classifier_state_dict_from_pytrees(params: Mapping, state: Mapping, cfg) -> 
     ``num_batches_tracked`` is 0: JAX keeps no count)."""
     resnet = isinstance(cfg.vision.layers, (list, tuple))
     sd = visual_state_dict_from_jax(params["backbone"], state["visual"] if resnet else None, cfg)
-    _put_lin(sd, "head", params["head"])
+    write_linear(sd, "head", params["head"])
     return sd

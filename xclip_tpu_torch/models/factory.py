@@ -4,9 +4,12 @@ Counterpart of ``xclip_tpu/models/factory.py``. The open_clip JSON configs
 are the port's copies in ``assets/model_configs`` (``_assets``).
 ``create_model`` returns one ``nn.Module`` in eval mode on the requested
 device; the ResNet configs (RN50, RN101, RN50x4, RN50x16, RN50x64 and their
--quickgelu variants) and the plain ViT configs (ViT-S/M/B/L/H/g/bigG/e and
-the CLIPA towers) are built. ``force_image_size`` and ``force_patch_dropout``
-override the config as the JAX factory does (:50-62); a checkpoint of
+-quickgelu variants), the plain ViT configs (ViT-S/M/B/L/H/g/bigG/e and
+the CLIPA towers) and the timm-tower configs of the ConvNeXt, EVA01/EVA02
+and timm-ViT families (the SigLIP towers, the gap and relpos medium ViTs)
+without an HF text tower are built. ``force_image_size`` and
+``force_patch_dropout`` override the config as the JAX factory does
+(:50-62), timm towers included; a checkpoint of
 another grid or context length loads with its positional embeddings
 resampled as JAX's loader does (``core.checkpoint.resize_pos_embeds``).
 """

@@ -48,9 +48,21 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1, padding: int = 0) -> torch.Tensor:
+def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1, padding: int = 0,
+           groups: int = 1) -> torch.Tensor:
     """Convolution in x's dtype (the weight is cast to it)."""
-    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding, groups=groups)
+
+
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                stride: int = 1, padding: int = 0, groups: int = 1,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``layers.conv_apply`` on NHWC: x (and the OIHW weight) in the compute
+    dtype, the bias added after the product is rounded; NHWC out."""
+    if dtype is not None:
+        x = x.to(dtype)
+    y = conv2d(x.permute(0, 3, 1, 2), weight, stride=stride, padding=padding, groups=groups).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def bn_factors(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,10 +142,12 @@ def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     return F.avg_pool2d(x, window)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, L, D) tensors with Lq != Lk
-    allowed (``layers.attention``, einsum path, no mask): fp32 logits and
-    softmax, weights cast to q's dtype before the product with v."""
+    allowed (``layers.attention``, einsum path): fp32 logits plus the
+    additive fp32 ``bias`` (broadcastable to (B, H, Lq, Lk)) when given,
+    fp32 softmax, weights cast to q's dtype before the product with v."""
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // num_heads
@@ -141,9 +155,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: i
     kh = k.reshape(b, lk, num_heads, hd).transpose(1, 2)
     vh = v.reshape(b, lk, num_heads, hd).transpose(1, 2)
     logits = (qh.float() @ kh.float().transpose(-1, -2)) * (hd ** -0.5)
+    if bias is not None:
+        logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     out = weights @ vh
     return out.transpose(1, 2).reshape(b, lq, d)
+
+
+class LayerScale(nn.Module):
+    """Per-channel learnable gamma on a residual branch (open_clip's
+    ``ls_1``/``ls_2``, timm's ``ls1``/``ls2``), applied in y's dtype."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(width))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return y * self.gamma.to(y.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth at ``rate`` (timm ``DropPath``): the identity in eval
+    mode. Training the timm towers is later work, so train mode with a
+    nonzero rate raises instead of dropping."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("drop path in train mode is not ported yet (a later slice); "
+                                      "call .eval() or set the rate to 0")
+        return y
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:

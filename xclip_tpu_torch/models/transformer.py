@@ -55,6 +55,10 @@ class TextTransformerCfg:
     pool_type: str = "argmax"
     no_causal_mask: bool = False
     ls_init_value: Optional[float] = None
+    # SigLIP text towers: an nn.Linear projection with bias, and the
+    # LayerNorms' eps from the config's norm_kwargs
+    proj_bias: bool = False
+    norm_eps: float = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,33 +113,22 @@ class SelfAttention(nn.Module):
         return L.linear(o, self.out_proj.weight, self.out_proj.bias, dtype=dtype)
 
 
-class LayerScale(nn.Module):
-    """Per-channel learnable gamma on a residual branch (``ls_1``/``ls_2``)."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.gamma = nn.Parameter(torch.empty(width))
-
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        return y * self.gamma.to(y.dtype)
-
-
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, act: str, *, mlp_ratio: float = 4.0,
-                 ls_init_value: Optional[float] = None, causal: bool = False):
+                 ls_init_value: Optional[float] = None, causal: bool = False, ln_eps: float = 1e-5):
         super().__init__()
         mlp_width = int(width * mlp_ratio)
         self.act = act
         self.ls_init_value = ls_init_value
-        self.ln_1 = nn.LayerNorm(width)
+        self.ln_1 = nn.LayerNorm(width, eps=ln_eps)
         self.attn = SelfAttention(width, heads, causal)
-        self.ls_1 = LayerScale(width) if ls_init_value is not None else nn.Identity()
-        self.ln_2 = nn.LayerNorm(width)
+        self.ls_1 = L.LayerScale(width) if ls_init_value is not None else nn.Identity()
+        self.ln_2 = nn.LayerNorm(width, eps=ln_eps)
         self.mlp = nn.Sequential(OrderedDict([
             ("c_fc", nn.Linear(width, mlp_width)),
             ("c_proj", nn.Linear(mlp_width, width)),
         ]))
-        self.ls_2 = LayerScale(width) if ls_init_value is not None else nn.Identity()
+        self.ls_2 = L.LayerScale(width) if ls_init_value is not None else nn.Identity()
 
     def init_parameters(self, generator: torch.Generator, layers: int) -> None:
         """Distributions of ``transformer.block_init``."""
@@ -167,11 +160,11 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, *, act: str, mlp_ratio: float = 4.0,
-                 ls_init_value: Optional[float] = None, causal: bool = False):
+                 ls_init_value: Optional[float] = None, causal: bool = False, ln_eps: float = 1e-5):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, act, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
-                                   causal=causal)
+                                   causal=causal, ln_eps=ln_eps)
             for _ in range(layers))
 
     def init_parameters(self, generator: torch.Generator) -> None:

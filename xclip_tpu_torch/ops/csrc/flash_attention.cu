@@ -39,14 +39,16 @@
 //   of 5 warps covers 80 rows; at 197 and 257 (ViT) two blocks of 7 (three
 //   of 5 above D = 80) and three of 6 warps.
 // - The head dim D is a template parameter, instantiated for 64 (the text
-//   towers and ViT-B/L), 80 (ViT-H), 88 (ViT-g), 104 (ViT-bigG) and 112
-//   (ViT-e); any multiple of 8 compiles. A slab's P V accumulator is D / 8
-//   n8 tiles and its q fragments D / 16 k-steps of 16. Where D is an odd
-//   multiple of 8 (88, 104) the 16-bit q k^T takes one more k-step of 8
+//   towers, ViT-B/L, EVA02 and the SigLIP B/L towers), 72 (both towers of
+//   ViT-SO400M-14-SigLIP), 80 (ViT-H), 88 (ViT-g), 104 (ViT-bigG) and 112
+//   (ViT-e, EVA02-E); any multiple of 8 compiles. A slab's P V accumulator
+//   is D / 8 n8 tiles and its q fragments D / 16 k-steps of 16. Where D is
+//   an odd multiple of 8 (72, 88, 104) the 16-bit q k^T takes one more
+//   k-step of 8
 //   (mma.sync m16n8k8, q and k through ldmatrix.x2) and P V one more n8
 //   tile (ldmatrix.x2.trans of V): no column is padded or read twice, and
-//   no loop drops the last 8. Rows stay whole 16-byte vectors (176, 208
-//   and 224 B in bf16), and each shared-memory row is padded to an odd
+//   no loop drops the last 8. Rows stay whole 16-byte vectors (144, 176,
+//   208 and 224 B in bf16), and each shared-memory row is padded to an odd
 //   number of 16-byte vectors, so ldmatrix's eight row addresses (and the
 //   fp32 path's lane groups) fall on distinct banks at every D.
 // - Registers: two blocks an SM at most. Up to D = 80 a block has up to 8
@@ -404,15 +406,18 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int BH, int L
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dim 64: the text tower of every config and ViT-S/M/B/L; 80: ViT-H;
-// 88: ViT-g; 104: ViT-bigG; 112: ViT-e. Any other is refused (the wrapper
-// names the head dims it has).
+// head dim 64: the text tower of every CLIP BPE config, ViT-S/M/B/L, EVA02
+// and the SigLIP B/L towers; 72: ViT-SO400M-14-SigLIP's image and text
+// towers; 80: ViT-H; 88: ViT-g; 104: ViT-bigG; 112: ViT-e, EVA02-E. Any
+// other is refused (the wrapper names the head dims it has).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int L, int head_dim, float sm_scale,
            bool causal, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
       return launch_d<T, 64>(q, k, v, o, BH, L, sm_scale, causal, stream);
+    case 72:
+      return launch_d<T, 72>(q, k, v, o, BH, L, sm_scale, causal, stream);
     case 80:
       return launch_d<T, 80>(q, k, v, o, BH, L, sm_scale, causal, stream);
     case 88:

@@ -5,8 +5,9 @@ via ``flash_attention`` and ``flash_mha``): online softmax with fp32 running
 max, sum and accumulator, optional causal mask, IO in q's dtype.
 
 - :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-  tensors (head dims 64, 80, 88, 104 and 112: the text towers and every
-  plain ViT from ViT-S to ViT-e; any length, causal or not; both products
+  tensors (head dims 64, 72, 80, 88, 104 and 112: the text towers, every
+  plain ViT from ViT-S to ViT-e, the EVA and timm-ViT towers, and both
+  towers of ViT-SO400M-14-SigLIP at 72; any length, causal or not; both products
   on the tensor cores, fp32 as three tf32 products that keep fp32
   accuracy) and uses the plain version for CPU tensors; nothing else.
   Other head dims raise on the card.
@@ -34,7 +35,7 @@ from xclip_tpu_torch.ops import _build
 launches = 0
 backward_calls = 0
 
-HEAD_DIMS = (64, 80, 88, 104, 112)  # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (64, 72, 80, 88, 104, 112)  # instantiated in csrc/flash_attention.cu
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False, sm_scale: Optional[float] = None):

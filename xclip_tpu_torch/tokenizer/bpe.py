@@ -192,7 +192,13 @@ def tokenize(texts: Union[str, List[str]], context_length: int = DEFAULT_CONTEXT
 
 def get_tokenizer(model_name: str) -> SimpleTokenizer:
     """The CLIP BPE tokenizer with the model config's ``context_length``
-    (the config must be one this port builds)."""
-    from xclip_tpu_torch.models.factory import get_clip_cfg
+    (the config must be one this port builds). A config that names a
+    Hugging Face tokenizer (``hf_tokenizer_name``: the SigLIP and CLIPA
+    configs) raises: those tokenizers' files are not in the repository."""
+    from xclip_tpu_torch.models.factory import get_clip_cfg, get_model_config
 
+    hf_name = (get_model_config(model_name) or {}).get("text_cfg", {}).get("hf_tokenizer_name")
+    if hf_name:
+        raise NotImplementedError(f"{model_name} uses the Hugging Face tokenizer {hf_name!r}, whose files are "
+                                  "not in the repository; only the CLIP BPE tokenizer is available")
     return SimpleTokenizer(context_length=get_clip_cfg(model_name).text.context_length)
